@@ -1,0 +1,270 @@
+"""Synthetic BOP-format data (numpy copy of lc_tpu/data/synthetic.py, plus an
+in-memory eval set).
+
+The real BOP datasets are not shipped with either repo; integration tests and the
+benchmark need an end-to-end-compatible stand-in. This module ray-casts a textured
+box analytically (exact depth + mask, no GL) and writes a miniature dataset in the
+exact on-disk BOP layout the loaders consume: rgb/, mask_visib/, scene_gt.json,
+scene_gt_info.json, scene_camera.json, models/models_info.json, models_eval/*.ply,
+z_crop/*.pkl.gz (gen_z format, reference tools/gen_z.py:169-187) and an image list.
+"""
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import os.path as osp
+import pickle
+
+import numpy as np
+from scipy.spatial.transform import Rotation as sciR
+
+K_DEFAULT = np.array([[572.4114, 0, 325.2611],
+                      [0, 573.57043, 242.04899],
+                      [0, 0, 1]], np.float32)
+
+
+def _cast(K, R, t, half_extents, us, vs):
+    """Rays through pixel coordinates (us, vs) against the box: model-frame
+    hit points (M, 3), hit mask, ray parameter s and camera-frame directions."""
+    pix = np.stack((us, vs, np.ones_like(us)), axis=-1).reshape(-1, 3)
+    d_cam = pix @ np.linalg.inv(K).T                      # (N, 3)
+    o_m = (-R.T @ t).reshape(3)
+    d_m = d_cam @ R                                        # rows Rᵀ d
+
+    inv_d = 1.0 / np.where(np.abs(d_m) < 1e-12, 1e-12, d_m)
+    t1 = (-half_extents - o_m) * inv_d
+    t2 = (half_extents - o_m) * inv_d
+    t_near = np.minimum(t1, t2).max(axis=-1)
+    t_far = np.maximum(t1, t2).min(axis=-1)
+    hit = (t_far > np.maximum(t_near, 0.0))
+    s = np.where(hit, t_near, 0.0)
+    return o_m + s[:, None] * d_m, hit, s, d_cam
+
+
+def raycast_box(K: np.ndarray, R: np.ndarray, t: np.ndarray,
+                half_extents: np.ndarray, im_hw=(480, 640)):
+    """Exact ray-box render: returns (depth (H,W) float mm, mask (H,W) bool,
+    rgb (H,W,3) uint8 with per-face shading + NOC tint)."""
+    H, W = im_hw
+    us, vs = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+    x_m, hit, s, d_cam = _cast(K, R, t, half_extents, us, vs)
+    depth = s * d_cam[:, 2]                                # z in camera frame
+
+    # shading: which slab face was hit (argmax |x_m| / extent), signed
+    face = np.argmax(np.abs(x_m) / half_extents, axis=-1)
+    sign = np.take_along_axis(np.sign(x_m), face[:, None], axis=-1)[:, 0]
+    base = np.asarray([90, 140, 190], np.float32)[face] + 30.0 * (sign > 0)
+    noc = (x_m / half_extents + 1.0) * 0.5                  # [0,1]³ texture tint
+    rgb = np.clip(base[:, None] * (0.55 + 0.45 * noc), 0, 255).astype(np.uint8)
+    rgb = np.where(hit[:, None], rgb, 0)
+
+    return (depth.reshape(H, W).astype(np.float32),
+            hit.reshape(H, W),
+            rgb.reshape(H, W, 3))
+
+
+def _write_ply_ascii(path: str, verts: np.ndarray):
+    with open(path, 'w') as f:
+        f.write('ply\nformat ascii 1.0\n'
+                f'element vertex {len(verts)}\n'
+                'property float x\nproperty float y\nproperty float z\n'
+                'end_header\n')
+        for v in verts:
+            f.write(f'{v[0]:.4f} {v[1]:.4f} {v[2]:.4f}\n')
+
+
+def box_mesh(half_extents: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Triangulated box: (8, 3) corners, (12, 3) faces."""
+    he = np.asarray(half_extents, np.float32)
+    corners = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                        for sz in (-1, 1)], np.float32) * he
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    faces = []
+    for a, b, c, d in quads:
+        faces += [(a, b, c), (a, c, d)]
+    return corners, np.asarray(faces, np.int64)
+
+
+def _write_ply_mesh_ascii(path: str, verts: np.ndarray, faces: np.ndarray):
+    with open(path, 'w') as f:
+        f.write('ply\nformat ascii 1.0\n'
+                f'element vertex {len(verts)}\n'
+                'property float x\nproperty float y\nproperty float z\n'
+                f'element face {len(faces)}\n'
+                'property list uchar int vertex_indices\n'
+                'end_header\n')
+        for v in verts:
+            f.write(f'{v[0]:.4f} {v[1]:.4f} {v[2]:.4f}\n')
+        for fc in faces:
+            f.write(f'3 {fc[0]} {fc[1]} {fc[2]}\n')
+
+
+def box_surface_points(half_extents: np.ndarray, n_per_face: int = 64
+                       ) -> np.ndarray:
+    """Evenly sampled points on the box surface (models_eval stand-in)."""
+    g = int(np.sqrt(n_per_face))
+    lin = np.linspace(-1, 1, g)
+    uu, vv = np.meshgrid(lin, lin)
+    uu, vv = uu.reshape(-1), vv.reshape(-1)
+    pts = []
+    for axis in range(3):
+        for sgn in (-1.0, 1.0):
+            p = np.zeros((len(uu), 3))
+            p[:, axis] = sgn
+            p[:, (axis + 1) % 3] = uu
+            p[:, (axis + 2) % 3] = vv
+            pts.append(p)
+    return (np.concatenate(pts) * half_extents).astype(np.float32)
+
+
+def generate_dataset(root: str, *, n_images: int = 24, obj_id: int = 1,
+                     half_extents=(40.0, 30.0, 20.0), split: str = 'train_syn',
+                     seed: int = 0, im_hw=(480, 640), symmetric: bool = False,
+                     list_name: str | None = None) -> str:
+    """Create the dataset under `root`; returns the image-list file path."""
+    import imageio.v2 as iio
+    rng = np.random.default_rng(seed)
+    he = np.asarray(half_extents, np.float32)
+    H, W = im_hw
+    scene_id = 1
+    scene_dir = osp.join(root, split, f'{scene_id:06d}')
+    os.makedirs(osp.join(scene_dir, 'rgb'), exist_ok=True)
+    os.makedirs(osp.join(scene_dir, 'mask_visib'), exist_ok=True)
+    os.makedirs(osp.join(root, split, 'z_crop', f'{scene_id:06d}'), exist_ok=True)
+    os.makedirs(osp.join(root, 'models'), exist_ok=True)
+    os.makedirs(osp.join(root, 'models_eval'), exist_ok=True)
+
+    diameter = float(2.0 * np.linalg.norm(he))
+    info = {'min_x': -float(he[0]), 'min_y': -float(he[1]), 'min_z': -float(he[2]),
+            'size_x': 2 * float(he[0]), 'size_y': 2 * float(he[1]),
+            'size_z': 2 * float(he[2]), 'diameter': diameter}
+    if symmetric:
+        m = np.eye(4)
+        m[:3, :3] = sciR.from_rotvec([0, 0, np.pi]).as_matrix()
+        info['symmetries_discrete'] = [m.reshape(-1).tolist()]
+    with open(osp.join(root, 'models', 'models_info.json'), 'w') as f:
+        json.dump({str(obj_id): info}, f)
+    verts = box_surface_points(he)
+    _write_ply_ascii(osp.join(root, 'models_eval', f'obj_{obj_id:06d}.ply'), verts)
+    with open(osp.join(root, 'models_eval', 'models_info.json'), 'w') as f:
+        json.dump({str(obj_id): info}, f)
+    # triangulated mesh under models/ so tools/gen_z.py can re-render z_crop
+    mv, mf = box_mesh(he)
+    _write_ply_mesh_ascii(osp.join(root, 'models', f'obj_{obj_id:06d}.ply'),
+                          mv, mf)
+
+    scene_gt, scene_gt_info, scene_cam = {}, {}, {}
+    frames = []
+    for im_id in range(n_images):
+        R = sciR.random(random_state=int(rng.integers(1 << 30))).as_matrix()
+        t = np.array([rng.uniform(-60, 60), rng.uniform(-40, 40),
+                      rng.uniform(550, 850)])
+        depth, mask, rgb = raycast_box(K_DEFAULT, R, t, he, im_hw)
+        # light background texture so background switching/eval have signal
+        bg = (rng.integers(20, 90, (H // 8, W // 8, 3))
+              .repeat(8, 0).repeat(8, 1)).astype(np.uint8)
+        rgb = np.where(mask[..., None], rgb, bg)
+
+        ys, xs = np.nonzero(mask)
+        x1, y1, x2, y2 = xs.min(), ys.min(), xs.max(), ys.max()
+        bbox = [int(x1), int(y1), int(x2 - x1 + 1), int(y2 - y1 + 1)]
+
+        iio.imwrite(osp.join(scene_dir, 'rgb', f'{im_id:06d}.png'), rgb)
+        iio.imwrite(osp.join(scene_dir, 'mask_visib',
+                             f'{im_id:06d}_{0:06d}.png'),
+                    (mask * 255).astype(np.uint8))
+
+        # z_crop in gen_z.py format: uint16 in 1..65535 over [z_min, z_max]
+        crop = depth[y1:y2 + 1, x1:x2 + 1].copy()
+        cmask = mask[y1:y2 + 1, x1:x2 + 1]
+        z_valid = crop[cmask]
+        z_min, z_max = float(z_valid.min()), float(z_valid.max())
+        denom = max(z_max - z_min, 1e-6)
+        z16 = np.zeros_like(crop, np.uint16)
+        z16[cmask] = (np.clip((crop[cmask] - z_min) / denom, 0, 1)
+                      * 65534 + 1).astype(np.uint16)
+        blob = {'z_crop': z16, 'xyxy': (int(x1), int(y1), int(x2), int(y2)),
+                'z_max': z_max, 'z_min': z_min}
+        with gzip.open(osp.join(root, split, 'z_crop', f'{scene_id:06d}',
+                                f'{im_id:06d}_{0:06d}.pkl.gz'), 'wb') as f:
+            pickle.dump(blob, f)
+
+        imk = str(im_id)
+        scene_gt[imk] = [{'cam_R_m2c': R.reshape(-1).tolist(),
+                          'cam_t_m2c': t.tolist(), 'obj_id': obj_id}]
+        scene_gt_info[imk] = [{'bbox_obj': bbox, 'bbox_visib': bbox,
+                               'px_count_visib': int(mask.sum()),
+                               'visib_fract': 1.0}]
+        scene_cam[imk] = {'cam_K': K_DEFAULT.reshape(-1).tolist(),
+                          'depth_scale': 1.0}
+        frames.append(f'{split}/{scene_id:06d}/rgb/{im_id:06d}.png')
+
+    for name, d in (('scene_gt', scene_gt), ('scene_gt_info', scene_gt_info),
+                    ('scene_camera', scene_cam)):
+        with open(osp.join(scene_dir, f'{name}.json'), 'w') as f:
+            json.dump(d, f)
+
+    list_path = osp.join(root, list_name or f'{split}_list.txt')
+    with open(list_path, 'w') as f:
+        f.write('\n'.join(frames) + '\n')
+    return list_path
+
+
+def oracle_noc(K: np.ndarray, R: np.ndarray, t: np.ndarray,
+               half_extents: np.ndarray, hw) -> np.ndarray:
+    """The exact NOC map (h, w, 3) a perfect network would predict on the grid
+    uv[y, x] = (x, y) of camera K: the box surface point where the pixel's ray
+    hits it, else the ray's point at the depth of the object center. Every
+    entry projects exactly onto its pixel under (R, t)."""
+    h, w = hw
+    us, vs = np.meshgrid(np.arange(w, dtype=np.float64),
+                         np.arange(h, dtype=np.float64))
+    x_m, hit, _, d_cam = _cast(K.astype(np.float64), R, t, half_extents, us, vs)
+    s_bg = t[2] / d_cam[:, 2]
+    x_bg = (-R.T @ t).reshape(3) + s_bg[:, None] * (d_cam @ R)
+    x_m = np.where(hit[:, None], x_m, x_bg)
+    return (x_m / half_extents).reshape(h, w, 3).astype(np.float32)
+
+
+def render_eval_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
+                    half_extents=(40.0, 30.0, 20.0), im_hw=(480, 640),
+                    net_input_wh=(256, 256), net_output_wh=(64, 64),
+                    dzi_pad_scale: float = 1.5) -> dict:
+    """An eval set held in memory: one box per rendered frame, with the eval
+    host blobs (the keys of data/pipeline.py::eval_blob), the GT records,
+    model points and models_info an Evaluator needs, and the poses.
+
+    Returns dict(blobs, gts, models, models_info, poses, half_extents)."""
+    from .pipeline import eval_blob
+    rng = np.random.default_rng(seed)
+    he = np.asarray(half_extents, np.float32)
+    H, W = im_hw
+    info = {'min_x': -float(he[0]), 'min_y': -float(he[1]),
+            'min_z': -float(he[2]), 'diameter': float(2.0 * np.linalg.norm(he))}
+    m_info = {'noc_scale_xfd': np.abs(he), 'noc_scale_ori': np.abs(he)}
+    blobs, gts, poses = [], [], []
+    for im_id in range(n_images):
+        R = sciR.random(random_state=int(rng.integers(1 << 30))).as_matrix()
+        t = np.array([rng.uniform(-60, 60), rng.uniform(-40, 40),
+                      rng.uniform(550, 850)])
+        _, mask, rgb = raycast_box(K_DEFAULT, R, t, he, im_hw)
+        bg = (rng.integers(20, 90, (H // 8, W // 8, 3))
+              .repeat(8, 0).repeat(8, 1)).astype(np.uint8)
+        rgb = np.where(mask[..., None], rgb, bg)
+        ys, xs = np.nonzero(mask)
+        bbox = [xs.min(), ys.min(), xs.max() - xs.min() + 1,
+                ys.max() - ys.min() + 1]
+        blobs.append(eval_blob(
+            rgb, K_DEFAULT, bbox, m_info, obj_id=obj_id, im_id=im_id,
+            scene_id=1, net_input_wh=net_input_wh, net_output_wh=net_output_wh,
+            dzi_pad_scale=dzi_pad_scale))
+        gts.append(dict(scene_id=1, im_id=im_id, obj_id=obj_id,
+                        R_gt=R.astype(np.float32),
+                        t_gt=t.astype(np.float32)[:, None],
+                        cam_K=K_DEFAULT.copy(), im_w=float(W)))
+        poses.append((R, t))
+    return dict(blobs=blobs, gts=gts, poses=poses, half_extents=he,
+                models={obj_id: box_surface_points(he)},
+                models_info={obj_id: info})

@@ -1,0 +1,63 @@
+"""Shared NN building blocks (counterpart of lc_tpu/models/layers.py).
+
+Mixed precision as in lc_tpu: convolutions compute in `compute_dtype` (bf16
+on the card; parameters stay f32), every BatchNorm computes in f32. The CPU
+runs the convolutions in f32. BN eps is 1e-5, torch's default.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def default_compute_dtype(device) -> torch.dtype:
+    """bf16 convolutions on the card, f32 on the CPU."""
+    return torch.bfloat16 if torch.device(device).type == 'cuda' \
+        else torch.float32
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in `compute_dtype`."""
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Deconv2x(nn.ConvTranspose2d):
+    """ConvTranspose2d(k=3, s=2, p=1, output_padding=1) without bias, computing
+    in `compute_dtype`: the decoder's 2x upsampling deconvolution."""
+    compute_dtype = torch.float32
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, stride=2, padding=1,
+                         output_padding=1, bias=False)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                                  stride=2, padding=1, output_padding=1)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d that restores f32 whatever the input dtype."""
+
+    def forward(self, x):
+        return super().forward(x.to(torch.float32))
+
+
+def upsample2x():
+    """Bilinear 2x upsampling with align_corners=True (torch's
+    UpsamplingBilinear2d, the reference decoder's upsample)."""
+    return nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set the convolution compute dtype of every conv in `module`."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Deconv2x)):
+            m.compute_dtype = dtype
+    return module

@@ -1,0 +1,95 @@
+"""Evaluation entry point (counterpart of lc_tpu/test.py):
+
+    python -m lc_tpu_torch.test --weight model.pth --config configs/glmo.yaml \\
+        --output out --obj 1 [--opts ...] [--deterministic] [--device cpu]
+
+--weight takes a .pth/.pt state dict in the reference layout. Runs on CUDA
+unless --device cpu is given.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import os.path as osp
+
+import torch
+
+from . import harness, resolve_device
+from .eval.evaluator import csv_from_results
+from .utils.config import load_config
+from .utils.logging import setup_logger
+
+logger = logging.getLogger(__name__)
+
+
+def load_reference_state_dict(path: str) -> dict:
+    """A .pth/.pt in the reference layout -> state_dict (CPU tensors), with
+    DataParallel 'module.' prefixes dropped. Loads tensors only (no pickled
+    code runs)."""
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    if isinstance(sd.get('model'), dict):
+        sd = sd['model']
+    return {k[len('module.'):] if k.startswith('module.') else k:
+            torch.as_tensor(v) for k, v in sd.items()}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--weight', type=str, required=True)
+    parser.add_argument('--config', type=str, required=True)
+    parser.add_argument('--output', type=str, required=True)
+    parser.add_argument('--obj', type=int, nargs='+', required=True)
+    parser.add_argument('--opts', nargs='+')
+    parser.add_argument('--deterministic', action='store_true')
+    parser.add_argument('--device', type=str, default=None,
+                        help='cuda (default) or cpu')
+    args = parser.parse_args(argv)
+
+    device = resolve_device(args.device)
+    if not osp.exists(args.weight):
+        raise SystemExit(f'weight file "{args.weight}" not found.')
+    if not args.weight.endswith(('.pth', '.pt')):
+        raise SystemExit('lc_tpu_torch.test reads .pth/.pt state dicts in the '
+                         'reference layout; lc_tpu .ckpt files are read from '
+                         'the training slice on')
+
+    cfg_name = osp.splitext(osp.split(args.config)[1])[0]
+    cfg = load_config(args.config, args.opts)
+    cfg.obj_ids = args.obj
+
+    os.makedirs(args.output, exist_ok=True)
+    log_name = '_'.join([cfg_name, cfg.train_dataset.name, 'test',
+                         ','.join(map(str, cfg.obj_ids)) + '.log'])
+    setup_logger(osp.join(args.output, log_name))
+
+    evaluator = harness.get_evaluator(cfg, device=device)
+    test_set, test_loader = harness.make_datasets(cfg)
+    model = harness.build_model_from_cfg(cfg)
+    model.load_state_dict(load_reference_state_dict(args.weight))
+    logger.info('loaded %s', args.weight)
+
+    if args.deterministic:
+        import numpy as np
+        np.random.seed(0)
+        torch.manual_seed(0)
+
+    results = harness.run_test(cfg, model, test_loader, test_set, evaluator,
+                               seed=0 if args.deterministic else 1,
+                               device=device)
+
+    table = ''
+    for name, res in results.items():
+        table += '\n' + name + '\n' + res['tables'][0] + '\n'
+    logger.info(table)
+
+    for name, text in csv_from_results(results).items():
+        csv_name = '_'.join([f'{cfg_name}-{name}', cfg.train_dataset.name,
+                             'test', ','.join(map(str, cfg.obj_ids)) + '.csv'])
+        with open(osp.join(args.output, csv_name), 'w') as f:
+            f.write(text)
+    return results
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,74 @@
+"""The PyTorch port stands alone: no jax/flax/optax/lc_tpu import anywhere in
+lc_tpu_torch or chip_smoke.py, and its entry points refuse to fall back to
+the CPU when no CUDA device is present."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'lc_tpu')
+
+
+def _port_sources():
+    files = sorted((ROOT / 'lc_tpu_torch').rglob('*.py'))
+    return files + [ROOT / 'chip_smoke.py']
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize('path', _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, f'{path} imports {bad}'
+
+
+def test_import_pulls_in_no_jax():
+    code = ('import sys\n'
+            'import lc_tpu_torch.harness, lc_tpu_torch.test, '
+            'lc_tpu_torch.inference\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            f'{FORBIDDEN!r}]\n'
+            'assert not bad, bad\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, '-c', code], check=True, env=env,
+                   cwd=ROOT, timeout=120)
+
+
+def _require_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present; this checks the refusal path')
+
+
+def test_entry_points_raise_without_cuda():
+    _require_no_cuda()
+    from lc_tpu_torch import harness, inference, resolve_device
+    with pytest.raises(RuntimeError, match='CUDA'):
+        resolve_device()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        inference.solve_pnp_dense({}, {})
+    with pytest.raises(RuntimeError, match='CUDA'):
+        harness.run_test(None, None, [], None, None)
+    assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_cli_raises_without_cuda(tmp_path):
+    _require_no_cuda()
+    from lc_tpu_torch import test as cli
+    with pytest.raises(RuntimeError, match='CUDA'):
+        cli.main(['--weight', 'w.pth', '--config', 'c.yaml', '--output',
+                  str(tmp_path), '--obj', '1'])
