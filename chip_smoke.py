@@ -17,7 +17,20 @@ Phases, each of which fails the run on error:
      configs/glmo.yaml (256² in, 64² out, batch 32), seeded weights carried
      in through state_dict_from_flax, in-memory batches and evaluator;
      kernel launch counts are zeroed just before and read just after;
-  5. one JSON line of kernel numbers, the card line, and the final
+  5. the shear kernel (B2) against its plain version at the glmo rotated
+     crop's shapes, timed beside grid_sample, and the composed rotated crop
+     with the kernel against the same composition with the plain shear;
+  6. the training path: configs/glmo.yaml with dataloader.device_rotate on
+     and background switching, CDPN-ResNet34 at glmo's widths and batch,
+     six steps of device_preprocess + train_step on in-memory blobs (the
+     first untimed), with the counts zeroed before and read after; then a
+     stage breakdown of one more step and its device-busy share;
+  7. the train CLI on the card: `python -m lc_tpu_torch.train`'s main on a
+     generated BOP tree (glmo widths and batch, device_rotate, background
+     images, the host loader in threads), six steps with an evaluation
+     through harness.run_test after step 3, counts zeroed before and read
+     after; then `python -m lc_tpu_torch.test` on its model_final;
+  8. one JSON line of kernel numbers, the card line, and the final
      {"ok": true, "device": ...} line.
 Imports torch, numpy, scipy, the standard library and the port only. Exits
 non-zero without a CUDA device, or outside a checkout of the repository.
@@ -25,6 +38,7 @@ non-zero without a CUDA device, or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,6 +55,16 @@ GLMO = dict(net_input_wh=(256, 256), net_output_wh=(64, 64), batch_size=32,
 N_BATCHES = 3
 # kernel-vs-plain tolerance (that of tests/test_pallas_lm.py)
 TOL = dict(translation_atol=0.05, quat_dot_min=1 - 1e-5, cost_rtol=1e-3)
+# the shear kernel against its plain version: atol on 0-255 values (that of
+# tests/test_pallas_warp.py)
+SHEAR_ATOL = 5e-4
+TRAIN_STEPS = 6
+# the profiler ranges of one training step (train.step_inputs, train_step)
+TRAIN_STAGES = ('h2d', 'preprocess', 'forward', 'targets_losses', 'backward',
+                'optimizer')
+# flops per output element of the shear (source position, floor, fraction,
+# 1 - f, the two-tap lerp), for its roofline bound
+SHEAR_FLOPS_PER_ELEM = 6
 
 
 def log(*a):
@@ -252,7 +276,6 @@ def phase_main(device) -> dict:
     from lc_tpu_torch.models import build_model
     from lc_tpu_torch.models.weights import (random_flax_variables,
                                              state_dict_from_flax)
-    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
     from lc_tpu_torch.utils.config import Config
     bs = GLMO['batch_size']
     t0 = time.perf_counter()
@@ -272,11 +295,12 @@ def phase_main(device) -> dict:
                                        bit_cnt=None))
     ev = Evaluator(es['gts'], es['models'], es['models_info'], device=device)
 
-    lm_refine_cuda.launches = 0
+    zero_kernel_counts()
     t0 = time.perf_counter()
     res = harness.run_test(cfg, model, batches, dataset, ev, device=device)
     wall = time.perf_counter() - t0
-    launches = lm_refine_cuda.launches
+    counts = kernel_counts()
+    launches = counts['lm_refine']
 
     errors = res['weighted']['errors']
     check(len(errors) == bs * N_BATCHES, 'not every crop got a pose')
@@ -286,6 +310,7 @@ def phase_main(device) -> dict:
           f'LM kernel launched {launches} times for {N_BATCHES} batches')
     per_crop_s = errors[0]['time']     # steady state: batches after the first
     rep = dict(batches=N_BATCHES, batch_size=bs, lm_launches=launches,
+               launches=counts,
                crops_per_s=1.0 / per_crop_s, wall_s=wall,
                add_s_0_10=res['weighted']['avg_score'])
     log(f'[main] {json.dumps(rep)}')
@@ -361,6 +386,412 @@ def stage_breakdown(model, batch, device) -> dict:
     return stages
 
 
+def kernel_counts() -> dict:
+    from lc_tpu_torch.ops.warp import shear_x_cuda
+    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
+    return {'lm_refine': lm_refine_cuda.launches,
+            'shear_x': shear_x_cuda.launches}
+
+
+def zero_kernel_counts():
+    from lc_tpu_torch.ops.warp import shear_x_cuda
+    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
+    lm_refine_cuda.launches = 0
+    shear_x_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# phase 5: the shear kernel against its plain version
+# --------------------------------------------------------------------------
+
+def glmo_shifts(B, n, seed, device):
+    """The x and y shifts of rotated_crop_warp's three shears for B glmo
+    rotations, theta spread over [0, 4 pi) as BOPDataset draws them."""
+    import torch
+    from lc_tpu_torch.ops.warp import _fold_quadrant
+    theta = torch.linspace(0, 4 * np.pi, B + 1, device=device)[:B]
+    theta = theta + torch.rand(B, generator=torch.Generator(device=device)
+                               .manual_seed(seed), device=device) * 0.1
+    _, res = _fold_quadrant(theta)
+    rows = torch.arange(n, dtype=torch.float32, device=device) - n / 2.0
+    sx = (-torch.tan(res / 2.0)[:, None] * rows[None]).contiguous()
+    sy = (torch.sin(res)[:, None] * rows[None]).contiguous()
+    return sx, sy
+
+
+def shear_grid(shifts, H, W, axis):
+    """grid_sample's sampling grid for the same shear (align_corners=True,
+    normalized coordinates)."""
+    import torch
+    dev = shifts.device
+    y = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
+    x = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
+    if axis == 0:
+        xs = (x + shifts[:, :, None]).expand(-1, H, W)
+        ys = y.expand(shifts.shape[0], H, W)
+    else:
+        xs = x.expand(shifts.shape[0], H, W)
+        ys = (y + shifts[:, None, :]).expand(-1, H, W)
+    return torch.stack((2 * xs / (W - 1) - 1, 2 * ys / (H - 1) - 1), -1)
+
+
+def shear_bound_ms(img, shifts) -> tuple[float, str]:
+    nbytes = 2 * img.numel() * 4 + shifts.numel() * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = SHEAR_FLOPS_PER_ELEM * img.numel() / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def phase_shear(device) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from lc_tpu_torch.ops.warp import shear_x_cuda, shear_x_reference
+    n = int(GLMO['net_input_wh'][0] * 1.5)                 # the 1.5x intermediate
+    B = GLMO['batch_size']
+    gen = torch.Generator(device=device).manual_seed(0)
+    report = {}
+    for C in (3, 1):
+        img = torch.rand(B, n, n, C, generator=gen, device=device) * 255
+        sx, sy = glmo_shifts(B, n, C, device)
+        half = torch.full_like(sx, n / 2.0 + 3.0)
+        half[1::2] *= -1                                  # beyond ±W/2
+        width = torch.full_like(sx, n + 2.0)
+        width[1::2] *= -1                                 # beyond ±W: all zero
+        for case, shifts, axis in (('x', sx, 0), ('y', sy, 1),
+                                   ('beyond_half_width', half, 0),
+                                   ('beyond_width', width, 1)):
+            out = shear_x_cuda(img, shifts, axis)
+            torch.cuda.synchronize()
+            ref = shear_x_reference(img, shifts, axis)
+            err = float((out - ref).abs().max())
+            check(err <= SHEAR_ATOL, f'shear C={C} {case}: max err {err}')
+            if case.startswith('beyond'):
+                check(case == 'beyond_half_width' or bool((out == 0).all()),
+                      'shifts beyond the line must read zero')
+                report[f'C{C}_{case}'] = dict(max_abs_err=err)
+                continue
+            nchw = img.permute(0, 3, 1, 2).contiguous()
+            grid = shear_grid(shifts, n, n, axis)
+            lib = F.grid_sample(nchw, grid, mode='bilinear',
+                                padding_mode='zeros', align_corners=True)
+            rep = dict(
+                shape=[B, n, n, C], axis=axis, max_abs_err=err,
+                max_shift=float(shifts.abs().max()),
+                library_max_abs_err=float(
+                    (lib.permute(0, 2, 3, 1) - ref).abs().max()),
+                ms=time_ms(lambda: shear_x_cuda(img, shifts, axis), reps=50),
+                device_ms=kernel_device_ms(
+                    lambda: shear_x_cuda(img, shifts, axis), 'shear_kernel'),
+                plain_ms=time_ms(lambda: shear_x_reference(img, shifts, axis),
+                                 reps=10),
+                library_ms=time_ms(lambda: F.grid_sample(
+                    nchw, grid, mode='bilinear', padding_mode='zeros',
+                    align_corners=True), reps=50))
+            rep['bound_ms'], rep['bound_by'] = shear_bound_ms(img, shifts)
+            report[f'C{C}_{case}'] = rep
+            log(f'[shear] C={C} {case}: {json.dumps(rep)}')
+    report['rotated_crop'] = composed_rotated_crop(device)
+    return report
+
+
+def composed_rotated_crop(device) -> dict:
+    """rotated_crop_warp at glmo's shapes, RGB and mask, with the kernel
+    against the same composition with the plain shear."""
+    import torch
+    from lc_tpu_torch.ops import warp
+    B = GLMO['batch_size']
+    gen = torch.Generator(device=device).manual_seed(1)
+    rgb = torch.rand(B, 480, 640, 3, generator=gen, device=device) * 255
+    center = torch.stack((torch.rand(B, generator=gen, device=device) * 400 + 120,
+                          torch.rand(B, generator=gen, device=device) * 240 + 120),
+                         -1)
+    scale = torch.rand(B, generator=gen, device=device) * 150 + 100
+    rot = torch.rand(B, generator=gen, device=device) * 4 * np.pi
+    rep = {}
+    for name, img in (('rgb', rgb), ('mask', rgb[..., :1] / 255.0)):
+        args = (img, center, scale, rot, GLMO['net_input_wh'])
+        before = warp.shear_x_cuda.launches
+        out = warp.rotated_crop_warp(*args)
+        torch.cuda.synchronize()
+        check(warp.shear_x_cuda.launches == before + 3,
+              'rotated_crop_warp did not launch the shear kernel 3 times')
+        plain = warp.rotated_crop_warp(*args, shear=warp.shear_x_reference)
+        err = float((out - plain).abs().max())
+        check(err <= SHEAR_ATOL, f'rotated crop {name}: max err {err}')
+        rep[name] = dict(max_abs_err=err, shape=list(out.shape),
+                         ms=time_ms(lambda: warp.rotated_crop_warp(*args),
+                                    reps=10),
+                         plain_ms=time_ms(lambda: warp.rotated_crop_warp(
+                             *args, shear=warp.shear_x_reference), reps=5))
+    log(f'[shear] rotated_crop_warp: {json.dumps(rep)}')
+    return rep
+
+
+# --------------------------------------------------------------------------
+# phase 6: the training path
+# --------------------------------------------------------------------------
+
+def glmo_train_cfg():
+    """configs/glmo.yaml with the device-rotated crop and the LC loss at its
+    full weight from the first step."""
+    from lc_tpu_torch.utils.config import load_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    return load_config(os.path.join(here, 'configs', 'glmo.yaml'), [
+        'dataloader.device_rotate=true', 'loss.pose_loss_start_step=0',
+        'loss.pose_loss_start_epoch=0'])
+
+
+def phase_train(device) -> dict:
+    import torch
+    from lc_tpu_torch import harness
+    from lc_tpu_torch.data import synthetic
+    from lc_tpu_torch.data.pipeline import collate
+    from lc_tpu_torch.loss.loss_fn import init_loss_state
+    from lc_tpu_torch.models import build_model, set_compute_dtype
+    from lc_tpu_torch.models.weights import (random_flax_variables,
+                                             state_dict_from_flax)
+    from lc_tpu_torch.optim.factory import build_optimizer
+    from lc_tpu_torch.train import step_inputs
+    from lc_tpu_torch.train_step import train_step
+    cfg = glmo_train_cfg()
+    ds_cfg = cfg.train_dataset
+    bs = cfg.dataloader.batch_size
+    check(bs == GLMO['batch_size'], 'glmo batch size')
+    t0 = time.perf_counter()
+    blobs = synthetic.render_train_set(
+        2 * bs, seed=21, net_input_wh=tuple(ds_cfg.net_input_wh),
+        net_output_wh=tuple(ds_cfg.net_output_wh),
+        dzi_scale_ratio=ds_cfg.dzi_scale_ratio,
+        dzi_shift_ratio=ds_cfg.dzi_shift_ratio,
+        dzi_pad_scale=ds_cfg.dzi_pad_scale, rotate_prob=ds_cfg.rotate_prob,
+        switch_bg_prob=ds_cfg.switch_bg_prob,
+        pixel_aug_prob=ds_cfg.pixel_aug_prob)
+    batches = [collate(blobs[i * bs:(i + 1) * bs]) for i in range(2)]
+    log(f'[train] rendered {2 * bs} training frames in '
+        f'{time.perf_counter() - t0:.1f} s')
+    check(all(b['switch_bg'].any() for b in batches), 'no background switch')
+
+    model = build_model('cdpn_resnet', {'concat': False})
+    model.load_state_dict(state_dict_from_flax(random_flax_variables(seed=0)))
+    model = set_compute_dtype(model.to(device), torch.bfloat16)
+    initial = {k: v.detach().clone() for k, v in model.named_parameters()}
+    steps_per_epoch = 100                      # nominal: schedule length only
+    loss_cfg = harness.make_loss_config(cfg, steps_per_epoch)
+    check(loss_cfg.full_pose_loss_step == 0, 'LC loss not at full weight')
+    optimizer, scheduler = build_optimizer(
+        model.parameters(), cfg.optimizer, cfg.scheduler,
+        cfg.train.num_epochs * steps_per_epoch)
+    loss_state = init_loss_state(device)
+    pp = dict(net_input_wh=tuple(ds_cfg.net_input_wh),
+              net_output_wh=tuple(ds_cfg.net_output_wh), mask_nearest=False,
+              train=True)
+    s = loss_cfg.dense_sample
+    seed = 42
+
+    def one_step(step, loss_state):
+        # the body of train.train's loop, on in-memory batches
+        gt, top_left = step_inputs(batches[step % 2], seed, step, device, pp, s)
+        return train_step(model, optimizer, scheduler, loss_cfg, loss_state,
+                          gt, step, top_left)
+
+    zero_kernel_counts()
+    all_metrics = []
+    t_first = time.perf_counter()
+    loss_state, m = one_step(0, loss_state)
+    all_metrics.append({k: float(v) for k, v in m.items()})
+    first_s = time.perf_counter() - t_first
+    thr_after_1 = float(loss_state.weight_clip.max_norm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_metrics = []
+    for step in range(1, TRAIN_STEPS):
+        loss_state, m = one_step(step, loss_state)
+        step_metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    all_metrics += [{k: float(v) for k, v in m.items()} for m in step_metrics]
+
+    for i, m in enumerate(all_metrics):
+        check(all(np.isfinite(v) for v in m.values()),
+              f'non-finite training metrics at step {i + 1}: {m}')
+    check(set(all_metrics[0]) >= {'loss', 'loss_noc', 'loss_seg', 'loss_pose',
+                                  'grad_norm'}, 'missing metrics')
+    check(thr_after_1 != -1.0 and thr_after_1 > 0,
+          f'weight clipper threshold after step 1: {thr_after_1}')
+    changed = sum(not torch.equal(p.detach(), initial[k])
+                  for k, p in model.named_parameters())
+    max_delta = max(float((p.detach() - initial[k]).abs().max())
+                    for k, p in model.named_parameters())
+    check(changed > 0, 'no parameter changed')
+    check(counts['shear_x'] == 6 * TRAIN_STEPS,
+          f'shear kernel launched {counts["shear_x"]} times in '
+          f'{TRAIN_STEPS} steps (expected 6 per step)')
+    rep = dict(steps=TRAIN_STEPS, batch_size=bs, launches=counts,
+               first_step_s=first_s, timed_steps=TRAIN_STEPS - 1,
+               timed_wall_s=wall,
+               crops_per_s=(TRAIN_STEPS - 1) * bs / wall,
+               weight_clip_after_step_1=thr_after_1,
+               params_changed=f'{changed}/{len(initial)}',
+               max_param_delta=max_delta, metrics=all_metrics)
+    log(f'[train] {json.dumps(rep)}')
+    rep['stages'] = train_stage_breakdown(
+        lambda: one_step(TRAIN_STEPS, loss_state))
+    log(f'[train] stages of one step: {json.dumps(rep["stages"])}')
+    return rep
+
+
+def train_stage_breakdown(step_fn) -> dict:
+    """One more training step, `step_fn` (the call the timed steps made),
+    under torch.profiler, read through the ranges that train.step_inputs and
+    train_step open (TRAIN_STAGES). For each stage: host_ms, the time
+    between its range's ends, and device_ms, the device time of the kernels
+    and copies launched inside it from any thread (autograd launches the
+    backward's kernels from its device thread while the caller waits in the
+    'backward' range). Then the device-busy time, the kernel count and the
+    busy share of the wall, and what no range claims."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.events()
+    # ranges (these and torch's 'Optimizer.step#...') also show as device
+    # spans; they are not work of the device
+    annotations = {e.name for e in events if e.device_type == cpu and (
+        getattr(e, 'is_user_annotation', False) or e.name in TRAIN_STAGES
+        or '#' in e.name)}
+    ranges = {e.name: e.time_range for e in events
+              if e.device_type == cpu and e.name in TRAIN_STAGES}
+    check(set(ranges) == set(TRAIN_STAGES),
+          f'profiled step has the ranges {sorted(ranges)}')
+    stages = {name: dict(host_ms=r.elapsed_us() / 1e3, device_ms=0.0)
+              for name, r in sorted(ranges.items(), key=lambda x: x[1].start)}
+    for e in events:
+        if e.device_type != cpu:
+            continue
+        dev_ms = sum(k.duration for k in e.kernels
+                     if k.name not in annotations) / 1e3
+        if not dev_ms:
+            continue
+        for name, r in ranges.items():
+            if r.start <= e.time_range.start < r.end:
+                stages[name]['device_ms'] += dev_ms
+                break
+    work = [e for e in events
+            if e.device_type == cuda and e.name not in annotations]
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    per_name: dict[str, float] = {}
+    for e in work:
+        per_name[e.name[:60]] = per_name.get(e.name[:60], 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    host = [e for e in prof.key_averages()
+            if e.device_type == cpu and e.key not in annotations]
+    stages.update(
+        profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_outside_ranges_ms=busy_ms - sum(
+            v['device_ms'] for k, v in stages.items() if k in TRAIN_STAGES),
+        device_kernels=len(work), device_busy_share=busy_ms / wall_ms,
+        top_kernels_ms=dict(sorted(per_name.items(),
+                                   key=lambda x: -x[1])[:8]),
+        top_host_ops_ms={
+            e.key[:60]: e.self_cpu_time_total / 1e3
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]})
+    return stages
+
+
+# --------------------------------------------------------------------------
+# phase 7: the train and test CLIs on a generated BOP tree
+# --------------------------------------------------------------------------
+
+def phase_cli(device) -> dict:
+    """Both CLIs as a user runs them, on the card (their default device;
+    `--device cpu` only when rehearsed on the CPU), in a temporary
+    directory that is removed afterwards."""
+    import tempfile
+    import cv2
+    import yaml
+    from lc_tpu_torch import test as test_cli
+    from lc_tpu_torch import train as train_cli
+    from lc_tpu_torch.data import synthetic
+    bs = GLMO['batch_size']
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, 'data')
+        t0 = time.perf_counter()
+        synthetic.generate_dataset(root, n_images=bs, split='train_syn', seed=3)
+        synthetic.generate_dataset(root, n_images=8, split='test_syn', seed=4,
+                                   list_name='test_list.txt')
+        bg = os.path.join(root, 'bg')
+        os.makedirs(bg)
+        rng = np.random.default_rng(0)
+        for i in range(4):
+            cv2.imwrite(os.path.join(bg, f'{i}.jpg'), rng.integers(
+                0, 256, (60, 80, 3)).repeat(8, 0).repeat(8, 1).astype(np.uint8))
+        log(f'[cli] generated the BOP tree in {time.perf_counter() - t0:.1f} s')
+        cfg = glmo_train_cfg()
+        del cfg.train['num_epochs']
+        cfg.merge_from_dict({
+            'train.num_steps': TRAIN_STEPS, 'train.test_every': 3,
+            'train.ckpt_every': 100, 'train_dataset.name': 'synthetic',
+            'train_dataset.dataset_root': root,
+            'train_dataset.list_files': [os.path.join(root,
+                                                      'train_syn_list.txt')],
+            'train_dataset.bg_dir': bg,
+            'test_dataset.name': 'synthetic',
+            'test_dataset.dataset_root': root, 'test_dataset.detection': '',
+            'test_dataset.list_files': [os.path.join(root, 'test_list.txt')]})
+        cfg_path = os.path.join(tmp, 'glmo_syn.yaml')
+        with open(cfg_path, 'w') as f:
+            yaml.safe_dump(cfg.to_dict(), f)
+        # the host loader alone (threads over PNG decode, cv2 warps, z_crop
+        # expansion), three epochs of one batch each
+        from lc_tpu_torch import harness
+        from lc_tpu_torch.data import native
+        _, loader = harness.make_datasets(cfg, train=True, seed=0)
+        t0 = time.perf_counter()
+        n_loaded = sum(len(b['obj_id']) for _ in range(3) for b in loader)
+        loader_rate = n_loaded / (time.perf_counter() - t0)
+        log(f'[cli] host loader alone: {loader_rate:.1f} crops/s with '
+            f'{cfg.dataloader.num_workers} threads, native z_crop library '
+            f'{"used" if native.available() else "absent"}')
+        out = os.path.join(tmp, 'out')
+        dev_args = [] if device.type == 'cuda' else ['--device', 'cpu']
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        train_cli.main(['--config', cfg_path, '--output', out] + dev_args)
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        exp = os.path.join(out, 'glmo-1')
+        with open(os.path.join(exp, 'metrics.jsonl')) as f:
+            lines = [json.loads(x) for x in f]
+        check([m['step'] for m in lines] == [1, TRAIN_STEPS],
+              f'train CLI metrics lines: {lines}')
+        check(all(np.isfinite(v) for m in lines for v in m.values()),
+              f'non-finite train CLI metrics: {lines}')
+        check(counts['shear_x'] == 6 * TRAIN_STEPS,
+              f'train CLI: shear kernel launched {counts["shear_x"]} times')
+        check(counts['lm_refine'] == 3,
+              f'train CLI: LM kernel launched {counts["lm_refine"]} times in '
+              'one evaluation of one batch (expected 3)')
+        best = [f for f in os.listdir(exp) if f.startswith('model_best_3_')]
+        check(len(best) == 1, 'no scored checkpoint exported')
+        t0 = time.perf_counter()
+        res = test_cli.main(['--weight', os.path.join(exp, 'model_final.ckpt'),
+                             '--config', cfg_path, '--output',
+                             os.path.join(tmp, 'test'), '--obj', '1']
+                            + dev_args)
+        test_wall = time.perf_counter() - t0
+        check(len(res['weighted']['errors']) == 8, 'test CLI: not 8 poses')
+    rep = dict(train_wall_s=wall, launches=counts, metrics=lines,
+               test_wall_s=test_wall, host_loader_crops_per_s=loader_rate)
+    log(f'[cli] {json.dumps(rep)}')
+    return rep
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -368,7 +799,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from lc_tpu_torch import cuda_build, resolve_device
-    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
     device = resolve_device('cuda')
     card = card_line()
     log(f'[setup] python {sys.version.split()[0]} torch {torch.__version__} '
@@ -389,6 +819,16 @@ def main() -> int:
     main_rep = phase_main(device)
     log(f'[phase] main path: {time.perf_counter() - t0:.1f} s')
     log(f'[main] {main_rep["crops_per_s"]:.1f} crops/s on {card}')
+    t0 = time.perf_counter()
+    shear = phase_shear(device)
+    log(f'[phase] shear kernel vs plain: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    train_rep = phase_train(device)
+    log(f'[phase] training path: {time.perf_counter() - t0:.1f} s')
+    log(f'[train] {train_rep["crops_per_s"]:.1f} train crops/s on {card}')
+    t0 = time.perf_counter()
+    phase_cli(device)
+    log(f'[phase] train and test CLIs: {time.perf_counter() - t0:.1f} s')
 
     a = lm['a_final_refine']
     kernels = [dict(
@@ -399,6 +839,16 @@ def main() -> int:
         ms=a['ms'], plain_ms=a['plain_ms'], bound_ms=a['bound_ms'],
         bound_by=a['bound_by'], library_ms=None,
         tolerance=TOL, cases=lm)]
+    x = shear['C3_x']
+    kernels.append(dict(
+        name='shear_x', route='cuda', source='lc_tpu_torch/csrc/shear_x.cu',
+        replaces='lc_tpu/ops/pallas_warp.py:53',
+        launches=train_rep['launches']['shear_x'],
+        max_abs_err=max(c['max_abs_err'] for k, c in shear.items()
+                        if k != 'rotated_crop'),
+        ms=x['ms'], plain_ms=x['plain_ms'], bound_ms=x['bound_ms'],
+        bound_by=x['bound_by'], library_ms=x['library_ms'],
+        tolerance=dict(atol=SHEAR_ATOL), cases=shear))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

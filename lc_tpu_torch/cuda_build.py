@@ -22,7 +22,7 @@ BUILD_DIR = osp.join(osp.dirname(osp.abspath(__file__)), 'build')
 # division and square root.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
-SOURCES = ('lm_refine',)
+SOURCES = ('lm_refine', 'shear_x')
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,27 +1,45 @@
-"""BOP dataset + input pipeline, eval branch (counterpart of
-lc_tpu/data/pipeline.py).
+"""BOP dataset + input pipeline (counterpart of lc_tpu/data/pipeline.py).
 
-Host (thread pool): image decode, the DZI crop box and affine matrices.
-Device: the full-image bilinear RGB crop and normalization
-(`device_preprocess`). The training branch (augmentation, rotated crops,
-targets) arrives with the training slice.
+Host (a thread pool): image and mask decode, DZI jitter, the crop affines,
+the small output-resolution warps (masks, homo_z), symmetry candidates and
+background crops. Device (`device_preprocess`): the full-image crops of RGB
+and mask, the rotated crop (ops/warp.py, the shear kernel) under
+`dataloader.device_rotate`, background switching, colour augmentation and
+normalization.
+
+All batch shapes are static: symmetry candidates padded to the dataset's
+largest K, check points fixed at 256, crops at the network's sizes.
 """
 from __future__ import annotations
 
 import collections
+import gzip
+import math
+import os
 import os.path as osp
+import pickle
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from . import bop
+from .augment import color_augment, switch_background
 from .crop import batched_separable_warp
 from .model_info import load_composed_model_info
 from ..geom.affine import affine33, crop_affine
+from ..geom.symmetry import (DATASET_SYMMETRIC_OBJ_IDS, pad_candidates,
+                             symmetry_pose_candidates)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+CHECK_PT_CNT = 256
+# host-blob keys device_preprocess consumes and drops
+_DEVICE_INPUT_KEYS = ('rgb_full', 'msk_full', 'bg_crop', 'in_affine',
+                      'switch_bg', 'pixel_aug', 'rgb_in', 'msk_in',
+                      'msk_vis_small', 'msk_noc_small', 'crop_center',
+                      'crop_scale', 'crop_rot')
 
 
 def _load_detections(det_path: str) -> dict:
@@ -71,10 +89,43 @@ def eval_blob(rgb: np.ndarray, cam_K: np.ndarray, bbox_xywh, m_info: dict, *,
     }
 
 
-class BOPDataset:
-    """Host-side eval sample assembly from a BOP tree."""
+def aug_bbox(bbox_xyxy, H: int, W: int, rng: np.random.Generator,
+             cfg_dataset) -> tuple[np.ndarray, float]:
+    """DZI jitter of the box: (center, scale) with the scale capped at the
+    image's larger side."""
+    x1, y1, x2, y2 = bbox_xyxy
+    cx, cy = 0.5 * (x1 + x2), 0.5 * (y1 + y2)
+    bw, bh = x2 - x1, y2 - y1
+    scale_ratio = 1 + cfg_dataset.dzi_scale_ratio * (2 * rng.random() - 1)
+    shift = cfg_dataset.dzi_shift_ratio * (2 * rng.random(2) - 1)
+    center = np.array([cx + bw * shift[0], cy + bh * shift[1]])
+    scale = max(y2 - y1, x2 - x1) * scale_ratio * cfg_dataset.dzi_pad_scale
+    return center, float(min(scale, max(H, W)))
 
-    def __init__(self, cfg_dataset, cfg_global):
+
+def check_points(msk_noc_small: np.ndarray, rng: np.random.Generator,
+                 valid_pix_cnt_th: int):
+    """CHECK_PT_CNT (x, y) pixels drawn from the object mask, without
+    replacement within each pass over it; None when the mask holds fewer
+    than valid_pix_cnt_th pixels (the caller resamples)."""
+    valid_pos = msk_noc_small.nonzero()
+    valid_cnt = len(valid_pos[0])
+    if valid_cnt < valid_pix_cnt_th:
+        return None
+    sel, idx_chunks = 0, []
+    while sel < CHECK_PT_CNT:
+        n_new = min(valid_cnt, CHECK_PT_CNT - sel)
+        sel += n_new
+        idx_chunks.append(rng.choice(valid_cnt, n_new, replace=False))
+    ck = np.concatenate(idx_chunks)
+    return np.stack((valid_pos[1][ck], valid_pos[0][ck]), -1).astype(np.int32)
+
+
+class BOPDataset:
+    """Host-side sample assembly from a BOP tree, for one (cfg_dataset,
+    train) pair."""
+
+    def __init__(self, cfg_dataset, cfg_global, train: bool = True):
         if cfg_global.get('max_bit_cnt', 0) > 0:
             raise NotImplementedError(
                 'binary (zebra) targets arrive with the zebra slice')
@@ -85,6 +136,7 @@ class BOPDataset:
         self._cv2 = cv2
         cv2.setNumThreads(0)
         self.cfg = cfg_dataset
+        self.training = train
 
         annots = []
         for list_file in cfg_dataset.list_files:
@@ -94,7 +146,7 @@ class BOPDataset:
                 obj_ids=cfg_global.get('obj_ids'),
                 cache_dir=cfg_global.get('cache_dir', ''),
                 gt_keys=['bbox_visib']))
-        if cfg_dataset.get('detection'):
+        if not train and cfg_dataset.get('detection'):
             det = _load_detections(cfg_dataset.detection)
             kept = []
             for im, inst in annots:
@@ -112,33 +164,198 @@ class BOPDataset:
             transform_model=cfg_global.get('transform_model', False),
             xform_path=cfg_global.get('transform_path'))
         self.bit_cnt = None
+
+        self.sym_obj_ids = []
+        if cfg_global.get('sym_aware', cfg_dataset.get('sym_aware', False)):
+            ids = DATASET_SYMMETRIC_OBJ_IDS.get(cfg_dataset.get('name'))
+            if ids is None:
+                raise RuntimeError(
+                    f'dataset name not found: {cfg_dataset.get("name")}')
+            self.sym_obj_ids = ids
+        # the candidate count every sample is padded to
+        self.max_candidates = 1
+        for oid in {a[1]['obj_id'] for a in annots} & set(self.sym_obj_ids):
+            info = self.model_info[oid]
+            k = 1 + len(info['symmetries_discrete']) \
+                if 'symmetries_discrete' in info \
+                else 384 if 'symmetries_continuous' in info else 1
+            self.max_candidates = max(self.max_candidates, k)
+
+        self.transform_model = cfg_global.get('transform_model', False)
+        self.valid_pix_cnt_th = cfg_dataset.get('valid_pix_cnt_th', 100)
         self.net_input_wh = tuple(cfg_global.get(
             'net_input_wh', cfg_dataset.get('net_input_wh', (256, 256))))
         self.net_output_wh = tuple(cfg_global.get(
             'net_output_wh', cfg_dataset.get('net_output_wh', (64, 64))))
+        self.mask_nearest = \
+            cfg_dataset.get('mask_interp', 'linear').lower() == 'nearest'
+        # dataloader.device_rotate: the rotated RGB (and mask) crop runs on
+        # the card through the shear kernel; the host ships full frames
+        self.device_rotate = bool(train and cfg_global.get(
+            'dataloader', {}).get('device_rotate', False))
+        # otherwise rotated crops are warped on the host with cv2
+        self.host_warp = train and cfg_dataset.get('rotate_prob', 0) > 0 \
+            and not self.device_rotate
+        self.bg_list = None
+        if train and cfg_dataset.get('bg_dir') and osp.isdir(cfg_dataset.bg_dir):
+            self.bg_list = sorted(osp.join(cfg_dataset.bg_dir, f)
+                                  for f in os.listdir(cfg_dataset.bg_dir))
 
     def __len__(self):
         return len(self.annots)
 
-    def sample(self, index: int) -> dict:
-        """One eval host blob."""
+    def _read_mask(self, im_info, inst_info):
+        path = osp.join(self.cfg.dataset_root, bop.mask_path(im_info, inst_info))
+        m = self._cv2.imread(path, self._cv2.IMREAD_GRAYSCALE)
+        if m is None:
+            raise FileNotFoundError(path)
+        return (m > 127).astype(np.float32)
+
+    def _homo_z_full(self, im_info, inst_info, size_hw):
+        """gzip z_crop -> the full-image (u·z, v·z, z) map (reference
+        dataset.py:287-311), through native/liblcdata.so when built."""
+        from . import native
+        path = osp.join(self.cfg.dataset_root,
+                        bop.z_crop_path(im_info, inst_info))
+        with gzip.open(path, 'rb') as f:
+            zi = pickle.load(f)
+        if zi['z_max'] == 0:
+            raise RuntimeError('no target in ROI')
+        homo_z, _ = native.zcrop_expand(zi['z_crop'], zi['xyxy'],
+                                        float(zi['z_min']), float(zi['z_max']),
+                                        size_hw)
+        return homo_z
+
+    def sample(self, index: int, rng: np.random.Generator | None = None):
+        """One host blob. A training sample draws from `rng` and is None
+        when its crop holds too few object pixels (the caller resamples)."""
         cv2 = self._cv2
         im_info, inst_info = self.annots[index]
-        bgr = cv2.imread(osp.join(self.cfg.dataset_root, im_info['rgb']),
+        cfg = self.cfg
+        bgr = cv2.imread(osp.join(cfg.dataset_root, im_info['rgb']),
                          cv2.IMREAD_COLOR)
         if bgr is None:
             raise FileNotFoundError(im_info['rgb'])
-        bbox = inst_info.get('bbox_det')
-        if bbox is None:
-            bbox = inst_info['bbox_visib']
+        rgb = np.ascontiguousarray(bgr[..., ::-1])
         obj_id = inst_info['obj_id']
-        return eval_blob(
-            np.ascontiguousarray(bgr[..., ::-1]), im_info['cam_K'], bbox,
-            self.model_info[obj_id], obj_id=obj_id, im_id=im_info['im_id'],
-            scene_id=im_info['scene_id'], net_input_wh=self.net_input_wh,
-            net_output_wh=self.net_output_wh,
-            dzi_pad_scale=self.cfg.dzi_pad_scale,
-            det_score=inst_info.get('det_score', 1.0))
+        if not self.training:
+            bbox = inst_info.get('bbox_det')
+            if bbox is None:
+                bbox = inst_info['bbox_visib']
+            return eval_blob(
+                rgb, im_info['cam_K'], bbox, self.model_info[obj_id],
+                obj_id=obj_id, im_id=im_info['im_id'],
+                scene_id=im_info['scene_id'], net_input_wh=self.net_input_wh,
+                net_output_wh=self.net_output_wh,
+                dzi_pad_scale=cfg.dzi_pad_scale,
+                det_score=inst_info.get('det_score', 1.0))
+
+        H, W = rgb.shape[:2]
+        cam_K = im_info['cam_K']
+        R = inst_info['cam_R_m2c']
+        t = inst_info['cam_t_m2c'][..., 0]
+        m_info = self.model_info[obj_id]
+        msk_visib = self._read_mask(im_info, inst_info)
+        homo_z = self._homo_z_full(im_info, inst_info, (H, W))
+        bbox_xywh = inst_info['bbox_visib']
+        bbox_xyxy = np.concatenate((bbox_xywh[:2], bbox_xywh[:2] + bbox_xywh[2:]))
+        center, scale = aug_bbox(bbox_xyxy, H, W, rng, cfg)
+        rotate = rng.random() * 4 * math.pi \
+            if rng.random() < cfg.get('rotate_prob', 0) else 0.0
+
+        out_wh, in_wh = self.net_output_wh, self.net_input_wh
+        out_aff = crop_affine(center, scale, rotate, out_wh).astype(np.float32)
+        in_aff = crop_affine(center, scale, rotate, in_wh).astype(np.float32)
+        with_bg = bool(self.bg_list)
+        vis_flag = cv2.INTER_NEAREST if self.mask_nearest else cv2.INTER_LINEAR
+        if self.host_warp:
+            blob = {
+                'rgb_in': cv2.warpAffine(rgb, in_aff, in_wh,
+                                         flags=cv2.INTER_LINEAR).astype(np.uint8),
+                'msk_vis_small': cv2.warpAffine(
+                    msk_visib, out_aff, out_wh, flags=vis_flag).astype(np.float32),
+            }
+            if with_bg:
+                blob['msk_in'] = (cv2.warpAffine(
+                    msk_visib, in_aff, in_wh, flags=cv2.INTER_LINEAR)
+                    * 255).astype(np.uint8)
+        elif self.device_rotate:
+            blob = {
+                'rgb_full': rgb,
+                'crop_center': center.astype(np.float32),
+                'crop_scale': np.float32(scale),
+                'crop_rot': np.float32(rotate),
+                'msk_vis_small': cv2.warpAffine(
+                    msk_visib, out_aff, out_wh, flags=vis_flag).astype(np.float32),
+            }
+            if with_bg:
+                blob['msk_full'] = (msk_visib * 255).astype(np.uint8)
+        else:
+            blob = {'rgb_full': rgb,
+                    'msk_full': (msk_visib * 255).astype(np.uint8),
+                    'in_affine': in_aff}
+        blob.update({
+            'out_affine': out_aff,
+            'out_K': (affine33(out_aff) @ cam_K).astype(np.float32),
+            'noc_scale': m_info['noc_scale_xfd'].astype(np.float32),
+            'noc_scale_ori': m_info['noc_scale_ori'].astype(np.float32),
+            'out_pix_scale': np.float32(scale / out_wh[0]),
+            'obj_id': np.int32(obj_id),
+            'im_id': np.int32(im_info['im_id']),
+            'scene_id': np.int32(im_info['scene_id']),
+        })
+        if self.transform_model:
+            blob['model_transform'] = m_info['xform'].astype(np.float32)
+
+        msk_noc_small = cv2.warpAffine(msk_visib, out_aff, out_wh,
+                                       flags=cv2.INTER_NEAREST) > 0.5
+        if self.host_warp or self.device_rotate:
+            blob['msk_noc_small'] = msk_noc_small.astype(np.float32)
+        sym_ck = check_points(msk_noc_small, rng, self.valid_pix_cnt_th)
+        if sym_ck is None:
+            return None
+        homo_z_out = cv2.warpAffine(homo_z, out_aff, out_wh,
+                                    flags=cv2.INTER_NEAREST)
+        if obj_id in self.sym_obj_ids:
+            cands = symmetry_pose_candidates(R, t, m_info)
+        else:
+            cands = np.concatenate((R, t[:, None]), -1)[None].astype(np.float32)
+        cands, cand_valid = pad_candidates(cands, self.max_candidates)
+        if with_bg:
+            switch_bg = rng.random() < cfg.get('switch_bg_prob', 0)
+            blob['switch_bg'] = np.bool_(switch_bg)
+            blob['bg_crop'] = (self._random_bg_crop(rng, in_wh) if switch_bg
+                               else np.zeros(in_wh[::-1] + (3,), np.uint8))
+        blob.update({
+            'homo_z_out': homo_z_out.astype(np.float32),
+            'K_no_aug': cam_K.astype(np.float32),
+            'R_no_aug': R.astype(np.float32),
+            't_no_aug': t.astype(np.float32),
+            'sym_ck_pts2d': sym_ck,
+            'Rt_candi': cands,
+            'candi_valid': cand_valid,
+            'bbox_3d': m_info['bbox_3d_ori'].astype(np.float32),
+            'diameter': np.float32(m_info['diameter']),
+            'pixel_aug': np.bool_(rng.random() < cfg.get('pixel_aug_prob', 0)),
+        })
+        return blob
+
+    def _random_bg_crop(self, rng, in_wh):
+        """A random resized crop of a random background image
+        (reference dataset.py:137-148)."""
+        cv2 = self._cv2
+        path = self.bg_list[rng.integers(len(self.bg_list))]
+        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise FileNotFoundError(path)
+        bg = np.ascontiguousarray(bgr[..., ::-1])
+        bh, bw = bg.shape[:2]
+        W, Hh = in_wh
+        rw = max(int(rng.random() * bw), W)
+        rh = max(int(rng.random() * bh), Hh)
+        rl = max(int(rng.random() * (bw - rw)), 0)
+        rt = max(int(rng.random() * (bh - rh)), 0)
+        return cv2.resize(bg[rt:rt + rh, rl:rl + rw], (W, Hh)).astype(np.uint8)
 
 
 def collate(samples: list[dict]) -> dict:
@@ -146,30 +363,66 @@ def collate(samples: list[dict]) -> dict:
 
 
 class Loader:
-    """In-order batches of dataset.sample() blobs, assembled by a pool of
-    threads with up to max(prefetch, num_threads) batches in flight."""
+    """Batches of dataset.sample() blobs, assembled by a pool of threads, in
+    order, with up to max(prefetch, num_threads) batches in flight.
 
-    def __init__(self, dataset, batch_size: int, *, num_threads: int = 4,
-                 prefetch: int = 2):
+    Training (the default for a training dataset): the order is shuffled
+    per epoch from (seed, epoch), the last partial batch dropped, and a
+    sample that comes back None replaced by a random one. Every sample draws
+    from np.random.default_rng((seed, epoch, batch index, row)), so the
+    stream is a function of its position: a resumed run (set_position)
+    repeats the uninterrupted one, whatever the threads do."""
+
+    def __init__(self, dataset, batch_size: int, *, seed: int = 0,
+                 shuffle: bool | None = None, num_threads: int = 4,
+                 prefetch: int = 2, drop_last: bool | None = None):
         self.ds = dataset
         self.batch_size = batch_size
+        train = getattr(dataset, 'training', False)
+        self.shuffle = train if shuffle is None else shuffle
+        self.drop_last = train if drop_last is None else drop_last
+        self.seed = seed
         self.num_threads = max(num_threads, 1)
         self.window = max(prefetch, self.num_threads)
+        self.epoch = 0
+        self._skip = 0
 
     def __len__(self):
-        return -(-len(self.ds) // self.batch_size)
+        n = len(self.ds)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
 
-    def _batch(self, i: int) -> dict:
-        stop = min((i + 1) * self.batch_size, len(self.ds))
-        return collate([self.ds.sample(j)
-                        for j in range(i * self.batch_size, stop)])
+    def set_position(self, batch_index: int):
+        """Resume at a global batch index: the next epoch iterated is
+        batch_index // len(self), its first batch_index % len(self) batches
+        skipped."""
+        if len(self):
+            self.epoch, self._skip = divmod(int(batch_index), len(self))
+
+    def _sample_ok(self, idx: int, rng: np.random.Generator) -> dict:
+        blob = self.ds.sample(idx, rng)
+        while blob is None:
+            blob = self.ds.sample(int(rng.integers(len(self.ds))), rng)
+        return blob
+
+    def _batch(self, epoch: int, i: int, idxs) -> dict:
+        return collate([self._sample_ok(int(j), np.random.default_rng(
+            (self.seed, epoch, i, jj))) for jj, j in enumerate(idxs)])
 
     def __iter__(self):
+        epoch = self.epoch
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.default_rng((self.seed, epoch)).shuffle(order)
+        self.epoch += 1
+        skip, self._skip = self._skip, 0
+        bs = self.batch_size
         pending: collections.deque = collections.deque()
         with ThreadPoolExecutor(self.num_threads) as pool:
             try:
-                for i in range(len(self)):
-                    pending.append(pool.submit(self._batch, i))
+                for i in range(skip, len(self)):
+                    pending.append(pool.submit(self._batch, epoch, i,
+                                               order[i * bs:(i + 1) * bs]))
                     if len(pending) >= self.window:
                         yield pending.popleft().result()
                 while pending:
@@ -179,18 +432,76 @@ class Loader:
                     f.cancel()
 
 
-def device_preprocess(batch: dict, *, net_input_wh) -> dict:
-    """Device stage of the eval pipeline: crop the RGB frames to the network
-    input (bf16 matmuls, as for 8-bit RGB in lc_tpu), normalize, and pass the
-    other fields through. batch: dict of tensors on the target device."""
+class MPLoader:
+    """lc_tpu's process-pool loader: not ported yet (ROADMAP queue A)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError('MPLoader is not ported yet; the threaded '
+                                  'Loader serves dataloader.multiprocess=false')
+
+
+def device_preprocess(batch: dict, generator: torch.Generator | None = None, *,
+                      net_input_wh, net_output_wh=None, mask_nearest=False,
+                      use_pepper_salt=False, use_motion_blur=False,
+                      use_invert=False, train=False) -> dict:
+    """The device stage: crops, background switch, colour augmentation (its
+    values drawn from `generator`, on the batch's device), normalization.
+    batch: dict of tensors on the target device, the collated host blobs.
+    Returns the gt blob the model and the losses consume."""
     in_hw = (net_input_wh[1], net_input_wh[0])
-    rgb_full = batch['rgb_full'].to(torch.float32)
-    rgb_in = batched_separable_warp(rgb_full, batch['in_affine'], in_hw,
-                                    'bilinear', compute_dtype=torch.bfloat16)
+    host_warped = 'rgb_in' in batch          # rotated crops warped on the host
+    device_rot = 'crop_rot' in batch         # dataloader.device_rotate
+    if host_warped:
+        rgb_in = batch['rgb_in'].to(torch.float32)
+    elif device_rot:
+        from ..ops.warp import rotated_crop_warp
+        rgb_in = rotated_crop_warp(batch['rgb_full'].to(torch.float32),
+                                   batch['crop_center'], batch['crop_scale'],
+                                   batch['crop_rot'], net_input_wh)
+    else:
+        # 8-bit RGB: bf16 matmuls, well under one intensity step of error
+        rgb_in = batched_separable_warp(batch['rgb_full'].to(torch.float32),
+                                        batch['in_affine'], in_hw, 'bilinear',
+                                        compute_dtype=torch.bfloat16)
+    out = {k: v for k, v in batch.items() if k not in _DEVICE_INPUT_KEYS}
+    if train:
+        out_hw = (net_output_wh[1], net_output_wh[0])
+        if host_warped or device_rot:
+            msk_in = batch.get('msk_in')
+            if msk_in is not None:
+                msk_in = msk_in.to(torch.float32) / 255.0
+            elif device_rot and 'msk_full' in batch:
+                from ..ops.warp import rotated_crop_warp
+                mf = (batch['msk_full'].to(torch.float32) / 255.0)[..., None]
+                msk_in = rotated_crop_warp(mf, batch['crop_center'],
+                                           batch['crop_scale'],
+                                           batch['crop_rot'],
+                                           net_input_wh)[..., 0]
+            msk_vis = batch['msk_vis_small']
+            msk_noc = batch['msk_noc_small'] > 0.5
+        else:
+            msk_full = (batch['msk_full'].to(torch.float32) / 255.0)[..., None]
+            msk_in = batched_separable_warp(msk_full, batch['in_affine'],
+                                            in_hw, 'bilinear')[..., 0]
+            msk_vis = batched_separable_warp(
+                msk_full, batch['out_affine'], out_hw,
+                'nearest' if mask_nearest else 'bilinear')[..., 0]
+            msk_noc = batched_separable_warp(
+                msk_full, batch['out_affine'], out_hw, 'nearest')[..., 0] > 0.5
+        if 'bg_crop' in batch:
+            rgb_in = switch_background(rgb_in, msk_in,
+                                       batch['bg_crop'].to(torch.float32),
+                                       batch['switch_bg'])
+        auged = color_augment(rgb_in, generator,
+                              use_pepper_salt=use_pepper_salt,
+                              use_motion_blur=use_motion_blur,
+                              use_invert=use_invert)
+        rgb_in = torch.where(batch['pixel_aug'][:, None, None, None], auged,
+                             rgb_in)
+        out['msk_vis'] = msk_vis
+        out['msk_noc'] = msk_noc.to(torch.float32)
     dev = rgb_in.device
     mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
     std = torch.as_tensor(IMAGENET_STD, device=dev)
-    out = {k: v for k, v in batch.items()
-           if k not in ('rgb_full', 'msk_full', 'in_affine', 'pixel_aug')}
     out['img_in'] = (rgb_in / 255.0 - mean) / std
     return out

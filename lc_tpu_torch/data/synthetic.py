@@ -123,8 +123,10 @@ def generate_dataset(root: str, *, n_images: int = 24, obj_id: int = 1,
                      half_extents=(40.0, 30.0, 20.0), split: str = 'train_syn',
                      seed: int = 0, im_hw=(480, 640), symmetric: bool = False,
                      list_name: str | None = None) -> str:
-    """Create the dataset under `root`; returns the image-list file path."""
-    import imageio.v2 as iio
+    """Create the dataset under `root`; returns the image-list file path.
+    PNGs are written with cv2 (lc_tpu's copy uses imageio, which the machine
+    with the card lacks); the files are the same lossless images."""
+    import cv2
     rng = np.random.default_rng(seed)
     he = np.asarray(half_extents, np.float32)
     H, W = im_hw
@@ -171,8 +173,9 @@ def generate_dataset(root: str, *, n_images: int = 24, obj_id: int = 1,
         x1, y1, x2, y2 = xs.min(), ys.min(), xs.max(), ys.max()
         bbox = [int(x1), int(y1), int(x2 - x1 + 1), int(y2 - y1 + 1)]
 
-        iio.imwrite(osp.join(scene_dir, 'rgb', f'{im_id:06d}.png'), rgb)
-        iio.imwrite(osp.join(scene_dir, 'mask_visib',
+        cv2.imwrite(osp.join(scene_dir, 'rgb', f'{im_id:06d}.png'),
+                    np.ascontiguousarray(rgb[..., ::-1]))
+        cv2.imwrite(osp.join(scene_dir, 'mask_visib',
                              f'{im_id:06d}_{0:06d}.png'),
                     (mask * 255).astype(np.uint8))
 
@@ -268,3 +271,98 @@ def render_eval_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
     return dict(blobs=blobs, gts=gts, poses=poses, half_extents=he,
                 models={obj_id: box_surface_points(he)},
                 models_info={obj_id: info})
+
+
+def render_train_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
+                     half_extents=(40.0, 30.0, 20.0), im_hw=(480, 640),
+                     net_input_wh=(256, 256), net_output_wh=(64, 64),
+                     dzi_scale_ratio: float = 0.25,
+                     dzi_shift_ratio: float = 0.25, dzi_pad_scale: float = 1.5,
+                     rotate_prob: float = 1.0, switch_bg_prob: float = 0.5,
+                     pixel_aug_prob: float = 0.8) -> list[dict]:
+    """Training host blobs held in memory, in the form BOPDataset.sample
+    gives under dataloader.device_rotate with background switching: full
+    frames and the crop's center, scale and rotation for the device's
+    rotated crop, plus the output-resolution masks and homo_z map. Those
+    are ray-cast directly at the crop's pixels (the source pixel of crop
+    pixel x is the affine's inverse at x, plus half a pixel), where the
+    dataset warps full-image maps with cv2; the background crops are random
+    textures. Needs numpy and scipy only."""
+    import types
+    from .model_info import bbox3d_from_scale
+    from .pipeline import aug_bbox, check_points
+    from ..geom.affine import affine33, crop_affine, invert_affine
+    from ..geom.symmetry import pad_candidates
+    rng = np.random.default_rng(seed)
+    he = np.asarray(half_extents, np.float32)
+    H, W = im_hw
+    out_w, out_h = net_output_wh
+    in_w, in_h = net_input_wh
+    dzi = types.SimpleNamespace(dzi_scale_ratio=dzi_scale_ratio,
+                                dzi_shift_ratio=dzi_shift_ratio,
+                                dzi_pad_scale=dzi_pad_scale)
+    xs, ys = np.meshgrid(np.arange(out_w, dtype=np.float64),
+                         np.arange(out_h, dtype=np.float64))
+    blobs = []
+    for im_id in range(n_images):
+        R = sciR.random(random_state=int(rng.integers(1 << 30))).as_matrix()
+        t = np.array([rng.uniform(-60, 60), rng.uniform(-40, 40),
+                      rng.uniform(550, 850)])
+        _, mask, rgb = raycast_box(K_DEFAULT, R, t, he, im_hw)
+        bg = (rng.integers(20, 90, (H // 8, W // 8, 3))
+              .repeat(8, 0).repeat(8, 1)).astype(np.uint8)
+        rgb = np.where(mask[..., None], rgb, bg)
+        yy, xx = np.nonzero(mask)
+        bbox_xyxy = np.array([xx.min(), yy.min(), xx.max() + 1, yy.max() + 1],
+                             np.float32)
+        center, scale = aug_bbox(bbox_xyxy, H, W, rng, dzi)
+        rotate = rng.random() * 4 * np.pi if rng.random() < rotate_prob else 0.0
+        out_aff = crop_affine(center, scale, rotate, net_output_wh) \
+            .astype(np.float32)
+        inv = invert_affine(out_aff.astype(np.float64))
+        su = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2] + 0.5
+        sv = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2] + 0.5
+        _, hit, s, d_cam = _cast(K_DEFAULT.astype(np.float64), R, t, he, su, sv)
+        z = (s * d_cam[:, 2]).reshape(out_h, out_w)
+        hit = hit.reshape(out_h, out_w)
+        homo_z = np.where(hit[..., None],
+                          np.stack((su * z, sv * z, z), -1), 0.0)
+        sym_ck = check_points(hit, rng, 1)
+        if sym_ck is None:
+            raise RuntimeError(f'frame {im_id}: the crop misses the object')
+        cands, cand_valid = pad_candidates(
+            np.concatenate((R, t[:, None]), -1)[None].astype(np.float32), 1)
+        switch_bg = rng.random() < switch_bg_prob
+        bg_crop = (rng.integers(0, 256, (in_h // 8, in_w // 8, 3))
+                   .repeat(8, 0).repeat(8, 1).astype(np.uint8)) if switch_bg \
+            else np.zeros((in_h, in_w, 3), np.uint8)
+        blobs.append({
+            'rgb_full': rgb,
+            'crop_center': center.astype(np.float32),
+            'crop_scale': np.float32(scale),
+            'crop_rot': np.float32(rotate),
+            'msk_vis_small': hit.astype(np.float32),
+            'msk_full': (mask * 255).astype(np.uint8),
+            'out_affine': out_aff,
+            'out_K': (affine33(out_aff) @ K_DEFAULT).astype(np.float32),
+            'noc_scale': he.copy(),
+            'noc_scale_ori': he.copy(),
+            'out_pix_scale': np.float32(scale / out_w),
+            'obj_id': np.int32(obj_id),
+            'im_id': np.int32(im_id),
+            'scene_id': np.int32(1),
+            'msk_noc_small': hit.astype(np.float32),
+            'switch_bg': np.bool_(switch_bg),
+            'bg_crop': bg_crop,
+            'homo_z_out': homo_z.astype(np.float32),
+            'K_no_aug': K_DEFAULT.copy(),
+            'R_no_aug': R.astype(np.float32),
+            't_no_aug': t.astype(np.float32),
+            'sym_ck_pts2d': sym_ck,
+            'Rt_candi': cands,
+            'candi_valid': cand_valid,
+            'bbox_3d': bbox3d_from_scale(he),
+            'diameter': np.float32(2.0 * np.linalg.norm(he)),
+            'pixel_aug': np.bool_(rng.random() < pixel_aug_prob),
+        })
+    return blobs

@@ -26,3 +26,14 @@ def gen_uv(shape_hw, dtype=torch.float32, device=None) -> torch.Tensor:
                           torch.arange(W, dtype=dtype, device=device),
                           indexing='ij')
     return torch.stack((x, y), dim=-1)
+
+
+def xyz_from_homo_z(homo_z: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                    cam_K: torch.Tensor) -> torch.Tensor:
+    """Backproject depth-scaled homogeneous pixels into the model frame.
+
+    homo_z: (..., P, 3) rows of (u·z, v·z, z) in camera pixels; R, t: the
+    model-to-camera pose; cam_K: (..., 3, 3). Returns (..., P, 3):
+    Rᵀ (K⁻¹ h − t)."""
+    cam_pts = homo_z @ torch.linalg.inv(cam_K).transpose(-1, -2)
+    return (cam_pts - t[..., None, :]) @ R

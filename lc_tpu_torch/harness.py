@@ -1,5 +1,5 @@
-"""Config -> model/data/evaluator wiring and the test loop (counterpart of
-lc_tpu/harness.py, inference on one device)."""
+"""Config -> model/loss/data/evaluator wiring and the test loop (counterpart
+of lc_tpu/harness.py, on one device)."""
 from __future__ import annotations
 
 import logging
@@ -12,9 +12,36 @@ from . import inference, resolve_device
 from .data.pipeline import BOPDataset, Loader, device_preprocess
 from .eval.evaluator import Evaluator, gen_score_table
 from .geom.pose import pose7_to_RT
+from .loss.loss_fn import LossConfig
 from .models import build_model, default_compute_dtype, set_compute_dtype
 
 logger = logging.getLogger(__name__)
+
+
+def make_loss_config(cfg, steps_per_epoch: int, bit_cnt=None) -> LossConfig:
+    lc = cfg.loss
+    pose_cfg = lc.get('pose_loss_cfg', {})
+    full = max(lc.get('pose_loss_start_step', 0),
+               lc.get('pose_loss_start_epoch', 0) * steps_per_epoch)
+    return LossConfig(
+        w_loss_noc=lc.get('w_loss_noc', 0.0),
+        w_loss_noc_bin=lc.get('w_loss_noc_bin', 0.0),
+        w_loss_seg=lc.get('w_loss_seg', 0.0),
+        w_loss_pose=lc.get('w_loss_pose', 0.0),
+        w_loss_kpts=lc.get('w_loss_kpts', 0.0),
+        seg_loss_type=lc.get('seg_loss_type', 'BCE').lower(),
+        full_pose_loss_step=int(full),
+        loss_pose_nz_step=lc.get('loss_pose_nz_step', 0),
+        dense_sample=pose_cfg.get('dense_sample', 2),
+        max_err_len=pose_cfg.get('max_err_len', 32),
+        cov_2d=pose_cfg.get('cov_2d', False),
+        clip_weight_grad=pose_cfg.get('clip_weight_grad', True),
+        clip_scale_grad=pose_cfg.get('clip_scale_grad', False),
+        clip_pts_grad=pose_cfg.get('clip_pts_grad', False),
+        bit_cnt=tuple(bit_cnt) if bit_cnt else None,
+        black_background=cfg.get('black_background', False),
+        sparse=cfg.get('sparse_cnt', 0) > 3,
+    )
 
 
 def build_model_from_cfg(cfg, total_bit_cnt: int = 0):
@@ -23,12 +50,34 @@ def build_model_from_cfg(cfg, total_bit_cnt: int = 0):
                        total_bit_cnt=total_bit_cnt)
 
 
-def make_datasets(cfg):
-    """(dataset, loader) of the test split."""
-    ds = BOPDataset(cfg.test_dataset, cfg)
-    loader = Loader(ds, cfg.dataloader.batch_size,
+def make_datasets(cfg, train: bool = True, seed: int = 0):
+    """(dataset, loader) of the training or the test split. Training loaders
+    shuffle and drop the last partial batch."""
+    if train and 'train_dataset_1' in cfg:
+        raise NotImplementedError('RatioMixLoader (train_dataset_1) is not '
+                                  'ported yet')
+    if train and cfg.dataloader.get('multiprocess', False):
+        raise NotImplementedError('MPLoader (dataloader.multiprocess) is not '
+                                  'ported yet')
+    ds = BOPDataset(cfg.train_dataset if train else cfg.test_dataset, cfg,
+                    train=train)
+    loader = Loader(ds, cfg.dataloader.batch_size, seed=seed, shuffle=train,
+                    drop_last=train,
                     num_threads=cfg.dataloader.get('num_workers', 4))
     return ds, loader
+
+
+def preprocess_kwargs(cfg, dataset, train: bool) -> dict:
+    ds_cfg = cfg.train_dataset if train else cfg.test_dataset
+    return dict(
+        net_input_wh=tuple(dataset.net_input_wh),
+        net_output_wh=tuple(dataset.net_output_wh),
+        mask_nearest=dataset.mask_nearest,
+        use_pepper_salt=ds_cfg.get('use_peper_salt', False),
+        use_motion_blur=ds_cfg.get('use_motion_blur', False),
+        use_invert=ds_cfg.get('use_invert', False),
+        train=train,
+    )
 
 
 def get_evaluator(cfg, device='cpu') -> Evaluator:

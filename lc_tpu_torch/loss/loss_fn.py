@@ -1,0 +1,143 @@
+"""Loss orchestration: surrogate and LC pose losses with the ramp and the
+gradient taps (counterpart of lc_tpu/loss/loss_fn.py, dense continuous-NOC
+path; reference losses.py:239-386).
+
+The clip thresholds live in an explicit LossState; the observed
+activation-gradient norms come back as the gradients of 0-d tap tensors
+(see clip.py) and are folded in by `finalize_loss_state`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .clip import ClipperState, clip_threshold, grad_tap, init_clipper_state, \
+    update_clipper_state
+from .cov_mixed import loss_cov_mixed
+from .surrogate import seg_bce_loss, seg_l1_loss
+from ..geom.projection import gen_uv
+
+TAP_NAMES = ('weight', 'scale', 'pts')
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Static loss hyperparameters (from cfg.loss; see configs/*.yaml)."""
+    w_loss_noc: float = 0.0
+    w_loss_noc_bin: float = 0.0
+    w_loss_seg: float = 0.0
+    w_loss_pose: float = 0.0
+    w_loss_kpts: float = 0.0
+    seg_loss_type: str = 'bce'           # 'bce' | 'l1'
+    full_pose_loss_step: int = 0         # max(start_step, start_epoch·steps)
+    loss_pose_nz_step: int = 0
+    dense_sample: int = 2
+    max_err_len: float = 32.0
+    cov_2d: bool = False                 # propagate to projected bbox corners
+    clip_weight_grad: bool = True
+    clip_scale_grad: bool = False
+    clip_pts_grad: bool = False
+    bit_cnt: tuple | None = None
+    black_background: bool = False
+    sparse: bool = False
+
+
+class LossState(NamedTuple):
+    weight_clip: ClipperState
+    scale_clip: ClipperState
+    pts_clip: ClipperState
+
+
+def init_loss_state(device=None) -> LossState:
+    return LossState(*(init_clipper_state(device) for _ in TAP_NAMES))
+
+
+def make_taps(device=None) -> dict:
+    """Fresh 0-d leaves whose .grad receives the observed norms."""
+    return {k: torch.zeros((), device=device, requires_grad=True)
+            for k in TAP_NAMES}
+
+
+def _strided_grid(x: torch.Tensor, sample: int, top: int, left: int):
+    """x (B, H, W, ...) -> (B, h·w, ...) from rows top::sample and cols
+    left::sample, floor(H/sample) of each (static shapes, as lc_tpu)."""
+    B, H, W = x.shape[:3]
+    h, w = H // sample, W // sample
+    rows = top + sample * torch.arange(h, device=x.device)
+    cols = left + sample * torch.arange(w, device=x.device)
+    return x[:, rows][:, :, cols].reshape((B, h * w) + tuple(x.shape[3:]))
+
+
+def _pose_ramp(cfg: LossConfig, step: int) -> float:
+    denom = max(cfg.full_pose_loss_step - cfg.loss_pose_nz_step, 0) + 1e-5
+    return min(max((step - cfg.loss_pose_nz_step + 1) / denom, 0.0), 1.0)
+
+
+def compute_losses(cfg: LossConfig, gt: dict, out: dict, state: LossState,
+                   step: int, taps: dict, sample_top_left=(0, 0)):
+    """Returns (total_loss, loss_dict). `taps` are the 0-d leaves whose
+    gradients report the observed activation-gradient norms."""
+    if cfg.sparse or cfg.bit_cnt is not None:
+        raise NotImplementedError('the sparse and binary (zebra) losses arrive '
+                                  'with their slices of the port')
+    loss_dict: dict[str, torch.Tensor] = {}
+    msk_noc, msk_vis = gt['msk_noc'], gt['msk_vis']           # (B, h, w)
+    noc_msked = out['xyz_noc'] * msk_noc[..., None]
+    loss_dict['loss_noc'] = torch.abs(noc_msked - gt['xyz_noc_tgt']).mean()
+    seg_fn = seg_l1_loss if cfg.seg_loss_type.lower() == 'l1' else seg_bce_loss
+    loss_dict['loss_seg'] = seg_fn(out['msk_vis_logits'], msk_vis[..., None])
+
+    # the dense LC pose loss
+    weight_logits = out['xyz_weight_logits']                  # (B, h, w, 2)
+    if cfg.clip_weight_grad:
+        weight_logits = grad_tap(weight_logits,
+                                 clip_threshold(state.weight_clip),
+                                 taps['weight'])
+    scale = out['xyz_weights_scale']                          # (B, 1, 1, 1)
+    if cfg.clip_scale_grad:
+        scale = grad_tap(scale, clip_threshold(state.scale_clip), taps['scale'])
+    B, h, w = weight_logits.shape[:3]
+    # softmax over the flattened (h·w·2) logits, in channel-last order
+    weights_full = torch.softmax(weight_logits.reshape(B, -1), -1) \
+        .reshape(weight_logits.shape) * scale
+
+    top, left = sample_top_left
+    s = cfg.dense_sample
+    uv = gen_uv((h, w), device=weight_logits.device)[None].expand(B, h, w, 2)
+    den_pts2d = _strided_grid(uv, s, top, left)
+    den_inv_std2d = _strided_grid(weights_full, s, top, left)
+    den_pts3d = _strided_grid(out['xyz_noc'], s, top, left) \
+        * gt['noc_scale'][:, None, :]
+    if cfg.clip_pts_grad:
+        den_pts3d = grad_tap(den_pts3d, clip_threshold(state.pts_clip),
+                             taps['pts'])
+    den_valid = torch.ones_like(den_pts3d[..., 0])
+    lc = loss_cov_mixed(gt['out_K'], gt['pose_best'], den_pts3d, den_pts2d,
+                        den_inv_std2d, den_valid, bbox_3d=gt['bbox_3d'],
+                        max_err_len=cfg.max_err_len, cov_2d=cfg.cov_2d)
+    f = _pose_ramp(cfg, step)
+    loss_weight_seg = seg_fn(weight_logits, msk_vis[..., None].expand(
+        weight_logits.shape))
+    loss_dict['loss_pose'] = f * lc.mean() + (1.0 - f) * loss_weight_seg
+
+    weights_cfg = {'loss_noc': cfg.w_loss_noc, 'loss_seg': cfg.w_loss_seg,
+                   'loss_pose': cfg.w_loss_pose}
+    total = sum(v * weights_cfg[k] for k, v in loss_dict.items()
+                if weights_cfg.get(k, 0) > 0)
+    return total, loss_dict
+
+
+def finalize_loss_state(state: LossState, tap_grads: dict,
+                        cfg: LossConfig) -> LossState:
+    """Fold the observed activation-gradient norms into the clip thresholds."""
+    ws = update_clipper_state(state.weight_clip, tap_grads['weight']) \
+        if cfg.clip_weight_grad else state.weight_clip
+    sc = update_clipper_state(state.scale_clip, tap_grads['scale'],
+                              rel_thresh=2.0) if cfg.clip_scale_grad \
+        else state.scale_clip
+    pt = update_clipper_state(state.pts_clip, tap_grads['pts'],
+                              rel_thresh=2.0) if cfg.clip_pts_grad \
+        else state.pts_clip
+    return LossState(weight_clip=ws, scale_clip=sc, pts_clip=pt)

@@ -1,8 +1,18 @@
-"""Network output decoding (counterpart of lc_tpu/loss/targets.py; the
-inference decode only)."""
+"""Network output decoding and on-the-fly training targets (counterpart of
+lc_tpu/loss/targets.py; continuous NOC only, the binary Gray codes arrive
+with the zebra slice).
+
+Symmetry candidates come padded to a fixed K with a validity mask
+(geom.symmetry.pad_candidates), so the selection is one batched argmin.
+Everything is channel-last.
+"""
 from __future__ import annotations
 
 import torch
+
+from ..geom.pose import RT_to_pose7
+from ..geom.projection import xyz_from_homo_z
+from ..geom.symmetry import select_pose_2d, select_pose_3d
 
 
 def nn_out_to_xyz(nn_out: torch.Tensor, noc_scale_xfd: torch.Tensor, *,
@@ -23,3 +33,68 @@ def nn_out_to_xyz(nn_out: torch.Tensor, noc_scale_xfd: torch.Tensor, *,
     scale = noc_scale_xfd.reshape(
         noc_scale_xfd.shape[:1] + (1,) * (nn_out.dim() - 2) + (3,))
     return nn_out * scale
+
+
+def _no_binary(bit_cnt):
+    if bit_cnt is not None:
+        raise NotImplementedError(
+            'binary (zebra) targets arrive with the zebra slice of the port')
+
+
+def xyz_to_nn_target(xyz: torch.Tensor, noc_scale_xfd: torch.Tensor, *,
+                     noc_mask=None, model_transform=None, bit_cnt=None):
+    """GT XYZ (B, H, W, 3) -> (target, None): the NOC target, channel-last."""
+    _no_binary(bit_cnt)
+    if model_transform is not None:
+        raise ValueError('model transform not supported for continuous xyz '
+                         'output (matches reference)')
+    return xyz.detach() / noc_scale_xfd[:, None, None, :], None
+
+
+def select_best_pose(gt: dict, out: dict, *, sym_aware_started: bool,
+                     bit_cnt=None):
+    """The best symmetry candidate per sample and the GT XYZ map.
+
+    gt: Rt_candi (B, K, 3, 4), candi_valid (B, K), homo_z_out (B, h, w, 3),
+    K_no_aug, msk_noc (B, h, w), sym_ck_pts2d (B, S, 2), noc_scale (B, 3),
+    out_K. Returns (Rt_best (B, 3, 4), pose_best (B, 7), xyz_gt (B, h, w, 3))."""
+    candis = gt['Rt_candi']
+    candi_valid = gt.get('candi_valid')
+    B, K = candis.shape[:2]
+    homo_z = gt['homo_z_out']
+    h, w = homo_z.shape[1:3]
+    K_no_aug = gt['K_no_aug']
+    if K == 1 or not sym_aware_started:
+        Rt_best = candis[:, 0]
+    elif 'pts2d' in out:         # sparse: 2D reprojection of the keypoints
+        Rt_best = select_pose_2d(gt['out_K'], gt['pts3d'], out['pts2d'],
+                                 candis, candi_valid)
+    else:                        # dense: 3D error at the check points
+        _no_binary(bit_cnt)
+        pts2d = torch.clamp(gt['sym_ck_pts2d'], min=0).long()
+        xg, yg = pts2d[..., 0], pts2d[..., 1]
+        bidx = torch.arange(B, device=pts2d.device)[:, None]
+        ck_pts3d = nn_out_to_xyz(out['xyz_noc'][bidx, yg, xg], gt['noc_scale'])
+        Rt_best = select_pose_3d(K_no_aug, ck_pts3d, homo_z[bidx, yg, xg],
+                                 candis, candi_valid)
+    pose_best = RT_to_pose7(Rt_best[..., :3], Rt_best[..., 3])
+    xyz = xyz_from_homo_z(homo_z.reshape(B, h * w, 3), Rt_best[..., :3],
+                          Rt_best[..., 3], K_no_aug)
+    xyz_gt = xyz.reshape(B, h, w, 3) * gt['msk_noc'][..., None]
+    return Rt_best, pose_best, xyz_gt
+
+
+@torch.no_grad()
+def annots_on_the_fly(gt: dict, out: dict, *, step: int,
+                      sym_aware_start: int = 0, bit_cnt=None) -> dict:
+    """Training targets for the current predictions, outside the graph."""
+    _no_binary(bit_cnt)
+    out = {k: v.detach() for k, v in out.items()}
+    sym_started = gt['Rt_candi'].shape[1] > 1 and step >= sym_aware_start
+    Rt_best, pose_best, xyz_gt = select_best_pose(
+        gt, out, sym_aware_started=sym_started, bit_cnt=bit_cnt)
+    target, _ = xyz_to_nn_target(xyz_gt, gt['noc_scale'],
+                                 noc_mask=gt['msk_noc'],
+                                 model_transform=gt.get('model_transform'))
+    return dict(Rt_best=Rt_best, pose_best=pose_best, xyz_gt=xyz_gt,
+                xyz_noc_tgt=target)

@@ -42,11 +42,17 @@ class Deconv2x(nn.ConvTranspose2d):
                                   stride=2, padding=1, output_padding=1)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in f64 when it is f64 (a model run in f64 as a rounding
+    reference keeps f64 throughout)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d that restores f32 whatever the input dtype."""
+    """BatchNorm2d that computes in f32 whatever the convolutions' dtype."""
 
     def forward(self, x):
-        return super().forward(x.to(torch.float32))
+        return super().forward(at_least_f32(x))
 
 
 def upsample2x():

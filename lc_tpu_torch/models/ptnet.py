@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from .cdpn import ResNetCDPN
-from .layers import set_compute_dtype
+from .layers import at_least_f32, set_compute_dtype
 
 
 def output_channel_slices(sparse_cnt: int = 0, binary_bits: int = 0) -> dict:
@@ -56,8 +56,8 @@ class PtNet(nn.Module):
         """rgb (B, H, W, 3) normalized -> dict of channel-last f32 tensors."""
         out_raw, feature = self.net(rgb.permute(0, 3, 1, 2))
         # the heads run in f32 whatever the convolution compute dtype
-        out_raw = out_raw.to(torch.float32).permute(0, 2, 3, 1)
-        feature = feature.to(torch.float32)
+        out_raw = at_least_f32(out_raw).permute(0, 2, 3, 1)
+        feature = at_least_f32(feature)
         split = {k: out_raw[..., v] for k, v in self.channel_slices.items()}
         noc_key = 'xyz_noc_bin' if self.binary_bits > 0 else 'xyz_noc'
         scale = torch.exp(self.weight_scale_layer(feature.mean((2, 3))))

@@ -139,3 +139,19 @@ def random_flax_variables(seed: int = 0, concat: bool = False,
     cast = lambda t: {k: cast(v) if isinstance(v, dict)  # noqa: E731
                       else np.asarray(v, np.float32) for k, v in t.items()}
     return {'params': cast(params), 'batch_stats': cast(stats)}
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """lc_tpu's initialization (its conv_init): every convolution,
+    deconvolution and linear weight drawn from N(0, 0.001²), biases zero,
+    BatchNorm the identity."""
+    for m in model.modules():
+        if isinstance(m, (Conv2d, Deconv2x, nn.Linear)):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           * 0.001)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm2d):
+            m.reset_parameters()
+    return model

@@ -3,8 +3,9 @@
     python -m lc_tpu_torch.test --weight model.pth --config configs/glmo.yaml \\
         --output out --obj 1 [--opts ...] [--deterministic] [--device cpu]
 
---weight takes a .pth/.pt state dict in the reference layout. Runs on CUDA
-unless --device cpu is given.
+--weight takes a .pth/.pt state dict in the reference layout, or a .ckpt
+written by lc_tpu_torch.train (model_final.ckpt, model_best_*.ckpt or a
+training checkpoint). Runs on CUDA unless --device cpu is given.
 """
 from __future__ import annotations
 
@@ -12,11 +13,13 @@ import argparse
 import logging
 import os
 import os.path as osp
+import pickle
 
 import torch
 
 from . import harness, resolve_device
 from .eval.evaluator import csv_from_results
+from .utils.checkpoint import model_state_dict
 from .utils.config import load_config
 from .utils.logging import setup_logger
 
@@ -34,6 +37,19 @@ def load_reference_state_dict(path: str) -> dict:
             torch.as_tensor(v) for k, v in sd.items()}
 
 
+def load_weights(path: str) -> dict:
+    """The model's state_dict from a reference .pth/.pt or a .ckpt of
+    lc_tpu_torch.train. lc_tpu's msgpack .ckpt files are not read yet."""
+    if not path.endswith('.ckpt'):
+        return load_reference_state_dict(path)
+    try:
+        return model_state_dict(path)
+    except (RuntimeError, KeyError, TypeError, EOFError,
+            pickle.UnpicklingError) as e:
+        raise SystemExit(f'{path} is not a checkpoint of lc_tpu_torch.train '
+                         f'(lc_tpu msgpack .ckpt files are not read yet): {e}')
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--weight', type=str, required=True)
@@ -49,10 +65,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     if not osp.exists(args.weight):
         raise SystemExit(f'weight file "{args.weight}" not found.')
-    if not args.weight.endswith(('.pth', '.pt')):
+    if not args.weight.endswith(('.pth', '.pt', '.ckpt')):
         raise SystemExit('lc_tpu_torch.test reads .pth/.pt state dicts in the '
-                         'reference layout; lc_tpu .ckpt files are read from '
-                         'the training slice on')
+                         'reference layout and .ckpt files of '
+                         'lc_tpu_torch.train')
 
     cfg_name = osp.splitext(osp.split(args.config)[1])[0]
     cfg = load_config(args.config, args.opts)
@@ -64,9 +80,9 @@ def main(argv=None):
     setup_logger(osp.join(args.output, log_name))
 
     evaluator = harness.get_evaluator(cfg, device=device)
-    test_set, test_loader = harness.make_datasets(cfg)
+    test_set, test_loader = harness.make_datasets(cfg, train=False)
     model = harness.build_model_from_cfg(cfg)
-    model.load_state_dict(load_reference_state_dict(args.weight))
+    model.load_state_dict(load_weights(args.weight))
     logger.info('loaded %s', args.weight)
 
     if args.deterministic:

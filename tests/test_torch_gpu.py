@@ -79,3 +79,58 @@ def test_kernel_rejects_cpu_and_bad_dtype(cuda):
     args[2] = args[2].double()
     with pytest.raises(TypeError):
         lm_refine_cuda(*args)
+
+
+# ---------------------------------------------------------------------------
+# B2: the shear kernel (csrc/shear_x.cu) against its plain version, atol 5e-4
+# on 0-255 values (that of tests/test_pallas_warp.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('C,axis', [(3, 0), (1, 0), (3, 1)])
+def test_shear_kernel_matches_plain(cuda, C, axis):
+    from lc_tpu_torch.ops.warp import shear_x_auto, shear_x_cuda, shear_x_reference
+    g = torch.Generator(device=cuda).manual_seed(C + axis)
+    img = torch.rand(4, 96, 128, C, generator=g, device=cuda) * 255
+    n = img.shape[2 - axis]                 # the length of a sheared line
+    lines = img.shape[1 + axis]             # one shift per line
+    line = torch.arange(lines, device=cuda) - lines / 2
+    slope = torch.rand(4, 1, generator=g, device=cuda) * 2 - 1
+    shifts = (slope * line[None]).contiguous()
+    shifts[0, :3] = torch.tensor([n + 5.0, -n - 5.0, 1e6], device=cuda)
+    before = shear_x_cuda.launches
+    out = shear_x_auto(img, shifts, axis)
+    torch.cuda.synchronize()
+    assert shear_x_cuda.launches == before + 1
+    ref = shear_x_reference(img, shifts, axis)
+    assert (out - ref).abs().max().item() <= 5e-4
+    assert torch.all((out[0, :3] if axis == 0 else out[0, :, :3]) == 0)
+
+
+def test_shear_kernel_rejects_cpu_and_bad_dtype(cuda):
+    from lc_tpu_torch.ops.warp import shear_x_cuda
+    img = torch.zeros(2, 8, 8, 3, device=cuda)
+    shifts = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(ValueError, match='CUDA'):
+        shear_x_cuda(img.cpu(), shifts.cpu())
+    with pytest.raises(TypeError):
+        shear_x_cuda(img.double(), shifts)
+    with pytest.raises(ValueError, match='contiguous'):
+        shear_x_cuda(img.transpose(1, 2), shifts)
+
+
+def test_rotated_crop_warp_kernel_matches_plain(cuda):
+    """The composed warp on the card (three kernel launches) against the
+    same composition with the plain shear, atol 5e-4 on 0-255 values."""
+    from lc_tpu_torch.ops import warp
+    g = torch.Generator(device=cuda).manual_seed(0)
+    img = torch.rand(4, 240, 320, 3, generator=g, device=cuda) * 255
+    center = torch.tensor([[160.0, 120.0], [150.0, 130.0]] * 2, device=cuda)
+    scale = torch.tensor([140.0, 120.0, 100.0, 90.0], device=cuda)
+    rot = torch.tensor([0.3, 1.9, 3.5, 5.9], device=cuda)
+    before = warp.shear_x_cuda.launches
+    out = warp.rotated_crop_warp(img, center, scale, rot, (64, 64))
+    torch.cuda.synchronize()
+    assert warp.shear_x_cuda.launches == before + 3
+    plain = warp.rotated_crop_warp(img, center, scale, rot, (64, 64),
+                                   shear=warp.shear_x_reference)
+    assert (out - plain).abs().max().item() <= 5e-4

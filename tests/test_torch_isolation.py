@@ -40,7 +40,7 @@ def test_no_reference_imports(path):
 def test_import_pulls_in_no_jax():
     code = ('import sys\n'
             'import lc_tpu_torch.harness, lc_tpu_torch.test, '
-            'lc_tpu_torch.inference\n'
+            'lc_tpu_torch.inference, lc_tpu_torch.train\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             f'{FORBIDDEN!r}]\n'
             'assert not bad, bad\n')
@@ -72,3 +72,15 @@ def test_cli_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match='CUDA'):
         cli.main(['--weight', 'w.pth', '--config', 'c.yaml', '--output',
                   str(tmp_path), '--obj', '1'])
+
+
+def test_train_cli_raises_without_cuda(tmp_path):
+    """python -m lc_tpu_torch.train refuses to fall back to the CPU: it
+    raises before reading its config unless --device cpu is given."""
+    _require_no_cuda()
+    from lc_tpu_torch import train as cli
+    from lc_tpu_torch.train import build_training
+    with pytest.raises(RuntimeError, match='CUDA'):
+        cli.main(['--config', 'c.yaml', '--output', str(tmp_path)])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_training(None)
