@@ -8,7 +8,9 @@ Phases, each of which fails the run on error:
      lc_tpu_torch/csrc with nvcc (one process per source, all at once);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      the main path gives it, with the stated tolerance, and both timed with
-     CUDA events;
+     CUDA events; for the LM kernel (B1) also the weight and mask forms,
+     ragged rows, running out of iterations with either fallback, and one
+     device operation per call;
   3. the oracle path: frames rendered in memory, the exact NOC map fed to
      inference.solve_pnp_dense as network output; poses must recover and
      the LM kernel must run exactly 3 times (2 LO-RANSAC polishes + 1 final
@@ -16,10 +18,15 @@ Phases, each of which fails the run on error:
   4. the main path: harness.run_test with CDPN-ResNet34 at the widths of
      configs/glmo.yaml (256² in, 64² out, batch 32), seeded weights carried
      in through state_dict_from_flax, in-memory batches and evaluator;
-     kernel launch counts are zeroed just before and read just after;
+     kernel launch counts are zeroed just before and read just after; then
+     the LM kernel against its plain version on that path's own inputs (one
+     batch's final refine and first LO polish; a problem more than the
+     tolerance away is held to the plain version on its points reordered);
   5. the shear kernel (B2) against its plain version at the glmo rotated
-     crop's shapes, timed beside grid_sample, and the composed rotated crop
-     with the kernel against the same composition with the plain shear;
+     crop's shapes, timed beside grid_sample over buffers the L2 cannot
+     hold, the column pass on random per-column shifts and sizes off its
+     tile, and the composed rotated crop with the kernel against the same
+     composition with the plain shear;
   6. the training path: configs/glmo.yaml with dataloader.device_rotate on
      and background switching, CDPN-ResNet34 at glmo's widths and batch,
      six steps of device_preprocess + train_step on in-memory blobs (the
@@ -37,6 +44,7 @@ non-zero without a CUDA device, or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -48,6 +56,9 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# its L2 (data sheet): a kernel timed against the HBM bound cycles through
+# copies of its inputs that this cannot hold
+L2_BYTES = 50 * 2 ** 20
 
 # glmo (configs/glmo.yaml): widths, batch, point selection, solvers
 GLMO = dict(net_input_wh=(256, 256), net_output_wh=(64, 64), batch_size=32,
@@ -98,21 +109,48 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, kernel_name: str, reps: int = 10) -> float:
-    """Mean device time of one kernel per call of fn, from torch.profiler:
-    the kernel alone, without the wrapper's host work and small torch ops
-    that `time_ms` includes."""
+def median_call_ms(fn, windows: int = 5, reps: int = 40) -> float:
+    """Time per call of fn (CUDA events), the median over `windows` windows
+    of `reps` calls: a call whose host work outlasts its device work is
+    timed by the host, whose clock the machine's other work disturbs."""
+    return float(np.median([time_ms(fn, reps=reps, warmup=2)
+                            for _ in range(windows)]))
+
+
+def rotating(fn, sets):
+    """A call of fn on each argument set in turn."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def l2_cold_sets(args, touched_bytes: int) -> list:
+    """Copies of the tensors `args` enough that between two uses of one
+    copy the other calls touch at least twice the L2 (`touched_bytes` per
+    call), so every launch reads its inputs from HBM."""
+    k = 1 + -(-2 * L2_BYTES // touched_bytes)
+    return [args] + [tuple(a.clone() for a in args) for _ in range(k - 1)]
+
+
+def kernel_device_ms(fn, kernel_name: str, reps: int = 10) -> float | None:
+    """Device time of one launch of a kernel that fn launches once, from
+    torch.profiler: the kernel alone, without the wrapper's host work and
+    small torch ops that `time_ms` includes. The mean over the launches a
+    window recorded (the profiler at times drops some of a window's
+    events); None (not measured) if three windows record none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if kernel_name in e.key)
-    return total / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel_name in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            return sum(e.self_device_time_total for e in hits) / n / 1e3
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -140,31 +178,72 @@ def lm_problem(B, N, seed, valid_frac, per_coord, device):
     return [x.to(device).contiguous() for x in (start, Ks, pts3d, uv, w, valid)]
 
 
-def lm_agreement(out, ref) -> dict:
+def lm_agreement(out, ref, keep=None) -> dict:
+    """The kernel's result `out` against the plain version's `ref`; the
+    translation and max_abs_err over the problems in `keep` (all if None)."""
     import torch
-    qd = (out.pose7[:, :4] * ref.pose7[:, :4]).sum(-1)
+    # the cosine of the two rotations' quaternions: the main path's poses
+    # (RANSAC's, refined) are not of unit norm
+    qa, qb = out.pose7[:, :4], ref.pose7[:, :4]
+    qd = (qa * qb).sum(-1) / (qa.norm(dim=-1) * qb.norm(dim=-1)).clamp(
+        min=1e-30)
     aligned = out.pose7.clone()
     aligned[:, :4] *= torch.where(qd < 0, -1.0, 1.0)[:, None]   # q ~ -q
     rel = (out.cost - ref.cost).abs() / ref.cost.abs().clamp(min=1e-12)
+    if keep is None:
+        keep = torch.ones_like(out.invalid)
     return dict(
-        max_translation_err=float((out.pose7[:, 4:] - ref.pose7[:, 4:]).abs().max()),
+        max_translation_err=float(
+            (out.pose7[keep, 4:] - ref.pose7[keep, 4:]).abs().max()),
         min_quat_dot=float(qd.abs().min()),
         max_cost_rel_err=float(rel.max()),
         invalid_equal=bool((out.invalid == ref.invalid).all()),
-        max_abs_err=float((aligned - ref.pose7).abs().max()),
+        max_abs_err=float((aligned[keep] - ref.pose7[keep]).abs().max()),
         n_iter_kernel=int(out.n_iter.sum()), n_iter_plain=int(ref.n_iter.sum()))
+
+
+def translation_err(a, b):
+    return (a.pose7[:, 4:] - b.pose7[:, 4:]).abs().amax(-1)
+
+
+def order_sensitive(args, kw, out, ref, orders: int = 8) -> dict:
+    """The problems on which the kernel's translation is more than TOL from
+    the plain version's, each with the plain version run again with its
+    points in `orders` other orders (seeded permutations): the same problem,
+    only the order of the float32 sums differs. Returns {problem: (error
+    against the plain version as given, the least error against a
+    reordered one)}."""
+    import torch
+    from lc_tpu_torch.pnp.solver import lm_refine
+    far = translation_err(out, ref) > TOL['translation_atol']
+    if not bool(far.any()):
+        return {}
+    gen = torch.Generator().manual_seed(0)
+    nearest = torch.full_like(out.cost, float('inf'))
+    for _ in range(orders):
+        p = torch.randperm(args[2].shape[1], generator=gen).to(args[2].device)
+        moved = [a[:, p].contiguous() if a is not None else None
+                 for a in args[2:]]
+        nearest = torch.minimum(nearest, translation_err(
+            out, lm_refine(*args[:2], *moved, **kw)))
+    err = translation_err(out, ref)
+    return {int(b): (float(err[b]), float(nearest[b]))
+            for b in far.nonzero()[:, 0]}
 
 
 def lm_bound_ms(args, out) -> tuple[float, str]:
     """Least time for this call: inputs read once, outputs written once, over
     HBM bandwidth; against the flops these inputs need (valid points times
     the iterations each problem ran) over the f32 peak. The larger wins."""
+    import torch
     from lc_tpu_torch.pnp.lm_kernel import (FLOPS_PER_POINT_INIT,
                                             FLOPS_PER_POINT_ITER)
-    nbytes = sum(a.numel() * a.element_size() for a in args)
+    nbytes = sum(a.numel() * a.element_size() for a in args if a is not None)
     nbytes += sum(a.numel() * a.element_size() for a in
                   (out.pose7, out.invalid, out.cost, out.n_iter, out.radius))
-    n_valid = args[5].sum(-1).double().cpu()
+    n_valid = (args[5].sum(-1).double().cpu() if args[5] is not None else
+               torch.full((args[2].shape[0],), float(args[2].shape[1]),
+                          dtype=torch.float64))
     n_iter = out.n_iter.double().cpu()
     flops = float((n_valid * (FLOPS_PER_POINT_INIT
                               + FLOPS_PER_POINT_ITER * n_iter)).sum())
@@ -173,21 +252,99 @@ def lm_bound_ms(args, out) -> tuple[float, str]:
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def phase_lm(device) -> dict:
+def device_ops_per_call(fn, reps: int = 10) -> float:
+    """Device operations (kernels, copies, memsets) per call of fn, from
+    torch.profiler: the most of three windows, as a window may drop
+    events but records none that did not run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    return max(counts) / reps
+
+
+def lm_case(args, kw, reorder_witness: bool = False):
+    """lm_refine_cuda against lm_refine on the same inputs, within TOL; the
+    kernel timed per wrapper call (CUDA events) and alone (profiler).
+
+    reorder_witness (the main path's own inputs, from a network with random
+    weights, where some problems' minima are shallow): a problem whose
+    translation is more than TOL from the plain version's agrees if it is
+    within TOL of the plain version's on the same points in another order
+    (order_sensitive). Such problems are listed under their own key and
+    left out of max_translation_err and max_abs_err. Returns the report and
+    the kernel's result."""
     import torch
     from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
     from lc_tpu_torch.pnp.solver import lm_refine
+    out = lm_refine_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    ref = lm_refine(*args, **kw)
+    sensitive = order_sensitive(args, kw, out, ref) if reorder_witness else {}
+    keep = torch.ones_like(out.invalid)
+    keep[list(sensitive)] = False
+    agr = lm_agreement(out, ref, keep)
+    if reorder_witness:
+        agr['order_sensitive'] = [
+            dict(problem=b, translation_err=e, nearest_reordered_plain=r)
+            for b, (e, r) in sensitive.items()]
+    check(agr['max_translation_err'] <= TOL['translation_atol']
+          and all(r <= TOL['translation_atol']
+                  for _, r in sensitive.values())
+          and agr['min_quat_dot'] >= TOL['quat_dot_min']
+          and agr['max_cost_rel_err'] <= TOL['cost_rtol']
+          and agr['invalid_equal'], f'LM kernel vs plain: {agr}')
+    B, N = args[2].shape[:2]
+    valid = args[5]
+    agr['shape'] = dict(B=B, N=N, weights=list(args[4].shape[2:]),
+                        valid=valid is not None,
+                        max_iter=kw.get('max_iter', 50),
+                        fallback_to_init=kw.get('fallback_to_init', True))
+    agr['valid_points_per_problem'] = float(
+        valid.sum(-1).float().mean()) if valid is not None else float(N)
+    agr['n_iter_mean'] = float(out.n_iter.float().mean())
+    agr['n_iter_max'] = int(out.n_iter.max())
+    agr['ms'] = median_call_ms(lambda: lm_refine_cuda(*args, **kw))
+    agr['device_ms'] = kernel_device_ms(
+        lambda: lm_refine_cuda(*args, **kw), 'lm_refine_kernel', reps=20)
+    agr['plain_ms'] = time_ms(lambda: lm_refine(*args, **kw), reps=3, warmup=1)
+    agr['bound_ms'], agr['bound_by'] = lm_bound_ms(args, out)
+    return agr, out
+
+
+def phase_lm(device) -> dict:
+    import torch
+    from lc_tpu_torch.pnp import lm_kernel
+    from lc_tpu_torch.pnp.solver import lm_refine_auto
     w, h = GLMO['net_output_wh']
     s = GLMO['dense_sample']
     B, N = GLMO['batch_size'], (w // s) * (h // s)
+    final = dict(max_iter=50, fallback_to_init=True)
     cases = {
-        'a_final_refine': (dict(B=B, N=N, seed=0, valid_frac=0.7, per_coord=True),
-                           dict(max_iter=50, fallback_to_init=True)),
+        'a_final_refine': (dict(B=B, N=N, seed=0, valid_frac=0.7,
+                                per_coord=True), final),
         'b_polish': (dict(B=B, N=N, seed=1, valid_frac=0.7, per_coord=False),
                      dict(max_iter=10, fallback_to_init=False)),
         'c_edges_N1000': (dict(B=B, N=1000, seed=2, valid_frac=0.7,
-                               per_coord=True),
-                          dict(max_iter=50, fallback_to_init=True)),
+                               per_coord=True), final),
+        # every row off 16-byte boundaries: the kernel's plain-load branch
+        'd_weights_BN_no_valid_N1001': (dict(B=B, N=1001, seed=3,
+                                             valid_frac=1.0, per_coord=False),
+                                        final),
+        'e_ran_out_fallback': (dict(B=B, N=N, seed=4, valid_frac=0.7,
+                                    per_coord=True),
+                               dict(max_iter=2, fallback_to_init=True)),
+        'f_ran_out_keep': (dict(B=B, N=N, seed=4, valid_frac=0.7,
+                                per_coord=True),
+                           dict(max_iter=2, fallback_to_init=False)),
     }
     report = {}
     for name, (pk, kw) in cases.items():
@@ -196,26 +353,45 @@ def phase_lm(device) -> dict:
             args[4] = torch.ones_like(args[4])            # unit weights
         if name == 'c_edges_N1000':
             args[5][0, 2:] = False                        # < 3 valid points
-        out = lm_refine_cuda(*args, **kw)
-        torch.cuda.synchronize()
-        ref = lm_refine(*args, **kw)
-        agr = lm_agreement(out, ref)
+        if name.startswith('d_'):
+            args[5] = None
+        agr, out = lm_case(args, kw)
         if name == 'c_edges_N1000':
             check(bool(out.invalid[0]), 'row with < 3 valid points not invalid')
             check(torch.equal(out.pose7[0], args[0][0]),
                   'row with < 3 valid points did not keep its init')
-        check(agr['max_translation_err'] <= TOL['translation_atol']
-              and agr['min_quat_dot'] >= TOL['quat_dot_min']
-              and agr['max_cost_rel_err'] <= TOL['cost_rtol']
-              and agr['invalid_equal'], f'LM kernel vs plain, case {name}: {agr}')
-        agr['ms'] = time_ms(lambda: lm_refine_cuda(*args, **kw), reps=20)
-        agr['device_ms'] = kernel_device_ms(
-            lambda: lm_refine_cuda(*args, **kw), 'lm_refine_kernel')
-        agr['plain_ms'] = time_ms(lambda: lm_refine(*args, **kw), reps=3, warmup=1)
-        agr['bound_ms'], agr['bound_by'] = lm_bound_ms(args, out)
-        agr['shape'] = dict(B=pk['B'], N=pk['N'], **kw)
+        if name.startswith(('e_', 'f_')):
+            ran_out = out.invalid & (out.n_iter == 2)
+            kept = (out.pose7[ran_out] == args[0][ran_out]).all(-1)
+            check(bool(ran_out.any()), f'{name}: no problem ran out')
+            check(bool(kept.all()) if name.startswith('e_')
+                  else not bool(kept.all()),
+                  f'{name}: fallback_to_init not applied as asked')
         report[name] = agr
         log(f'[lm] {name}: {json.dumps(agr)}')
+        if name == 'a_final_refine':
+            a_args = args
+
+    # one device operation per call, called directly and through the main
+    # path's dispatch
+    for fn in (lm_kernel.lm_refine_cuda, lm_refine_auto):
+        ops = device_ops_per_call(lambda: fn(*a_args, **final))
+        report[f'device_ops_per_{fn.__name__}_call'] = ops
+        log(f'[lm] device operations per {fn.__name__} call: {ops}')
+        check(ops == 1, f'{fn.__name__} ran {ops} device operations per call')
+
+    return report
+
+
+def phase_lm_main_inputs(captured) -> dict:
+    """The LM kernel on the main path's own inputs, kept from one profiled
+    batch of phase 4: the final weighted refine and the first LO polish."""
+    report = {}
+    for name, (args, kw) in captured.items():
+        kw = dict(kw)
+        args = list(args) + [kw.pop('valid', None)]
+        report[name] = lm_case(args, kw, reorder_witness=True)[0]
+        log(f'[lm] {name}: {json.dumps(report[name])}')
     return report
 
 
@@ -314,24 +490,33 @@ def phase_main(device) -> dict:
                crops_per_s=1.0 / per_crop_s, wall_s=wall,
                add_s_0_10=res['weighted']['avg_score'])
     log(f'[main] {json.dumps(rep)}')
-    rep['stages'] = stage_breakdown(model, batches[-1], device)
+    rep['stages'], lm_inputs = stage_breakdown(model, batches[-1], device)
     log(f'[main] stages of one batch: {json.dumps(rep["stages"])}')
-    return rep
+    return rep, lm_inputs
 
 
-def stage_breakdown(model, batch, device) -> dict:
+def stage_breakdown(model, batch, device) -> tuple[dict, dict]:
     """One more batch of the main path, stage by stage (the calls
     harness.run_test and inference.solve_pnp_dense make): host clock around
     each stage with the device synchronized, in ms. Then the same batch under
     torch.profiler: device-busy time (sum of kernel times; one stream, so
-    kernels do not overlap), kernel count, and the busy share of the wall."""
+    kernels do not overlap), kernel count, and the busy share of the wall.
+    Also returns the main path's own LM inputs: the arguments of the batch's
+    final refine and of its first LO polish."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from lc_tpu_torch.data.pipeline import device_preprocess
     from lc_tpu_torch.inference import dense_grid_outputs, quantile_mask_bisect
+    from lc_tpu_torch.pnp import solver
     from lc_tpu_torch.pnp.ransac import ransac_pnp
     from lc_tpu_torch.pnp.solver import lm_refine_auto
     gen = torch.Generator(device=device)
+    lm_inputs = {}
+
+    def first_polish(*a, **kw):
+        # ransac_pnp's LO polish, which calls solver.lm_refine_auto
+        lm_inputs.setdefault('main_lo_polish', (a, kw))
+        return lm_refine_auto(*a, **kw)
 
     def one_batch(timed):
         dev = timed('h2d', lambda: {k: torch.as_tensor(v).to(device)
@@ -346,10 +531,15 @@ def stage_breakdown(model, batch, device) -> dict:
         args = (gt['out_K'], d['pts3d'], d['pts2d'], gen)
         timed('ransac_hypotheses', lambda: ransac_pnp(*args, valid=valid,
                                                       local_opt=False))
-        rr = timed('ransac_full', lambda: ransac_pnp(*args, valid=valid))
-        timed('lm_final', lambda: lm_refine_auto(
-            rr.pose7, gt['out_K'], d['pts3d'], d['pts2d'], d['inv_std2d'] ** 2,
-            valid=valid))
+        solver.lm_refine_auto = first_polish
+        try:
+            rr = timed('ransac_full', lambda: ransac_pnp(*args, valid=valid))
+        finally:
+            solver.lm_refine_auto = lm_refine_auto
+        final = lm_inputs['main_final_refine'] = (
+            (rr.pose7, gt['out_K'], d['pts3d'], d['pts2d'],
+             d['inv_std2d'] ** 2), dict(valid=valid))
+        timed('lm_final', lambda: lm_refine_auto(*final[0], **final[1]))
 
     stages: dict[str, float] = {}
 
@@ -383,7 +573,7 @@ def stage_breakdown(model, batch, device) -> dict:
     stages['top_kernels_ms'] = {
         e.key[:60]: e.self_device_time_total / 1e3
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]}
-    return stages
+    return stages, lm_inputs
 
 
 def kernel_counts() -> dict:
@@ -474,22 +664,61 @@ def phase_shear(device) -> dict:
             grid = shear_grid(shifts, n, n, axis)
             lib = F.grid_sample(nchw, grid, mode='bilinear',
                                 padding_mode='zeros', align_corners=True)
+            # timed L2-cold: at C = 1 one image and its output fit the L2
+            # and a repeated launch would read them from there
+            kern = rotating(lambda i, s: shear_x_cuda(i, s, axis),
+                            l2_cold_sets((img, shifts), 2 * img.numel() * 4))
+            sample = rotating(
+                lambda i, g: F.grid_sample(i, g, mode='bilinear',
+                                           padding_mode='zeros',
+                                           align_corners=True),
+                l2_cold_sets((nchw, grid),
+                             2 * img.numel() * 4 + grid.numel() * 4))
             rep = dict(
                 shape=[B, n, n, C], axis=axis, max_abs_err=err,
                 max_shift=float(shifts.abs().max()),
                 library_max_abs_err=float(
                     (lib.permute(0, 2, 3, 1) - ref).abs().max()),
-                ms=time_ms(lambda: shear_x_cuda(img, shifts, axis), reps=50),
-                device_ms=kernel_device_ms(
-                    lambda: shear_x_cuda(img, shifts, axis), 'shear_kernel'),
+                ms=time_ms(kern, reps=48),
+                device_ms=kernel_device_ms(kern, 'shear_', reps=12),
+                # the same buffers every launch, L2-resident at C = 1, as
+                # the kernel was timed before its column pass was redesigned
+                device_ms_same_buffers=kernel_device_ms(
+                    lambda: shear_x_cuda(img, shifts, axis), 'shear_'),
                 plain_ms=time_ms(lambda: shear_x_reference(img, shifts, axis),
                                  reps=10),
-                library_ms=time_ms(lambda: F.grid_sample(
-                    nchw, grid, mode='bilinear', padding_mode='zeros',
-                    align_corners=True), reps=50))
+                library_ms=time_ms(sample, reps=48),
+                # cuDNN's bilinear_sampler, or PyTorch's grid_sampler_2d
+                library_device_ms=kernel_device_ms(sample, 'sampler',
+                                                   reps=12))
             rep['bound_ms'], rep['bound_by'] = shear_bound_ms(img, shifts)
             report[f'C{C}_{case}'] = rep
             log(f'[shear] C={C} {case}: {json.dumps(rep)}')
+        # the column pass on harder inputs: a random shift per column,
+        # uniform in +-n/2 (windows beyond a tile's shared memory, walked in
+        # chunks), and sizes that are not multiples of the 32 x 64 tile
+        for m in (384, 383, 97):
+            img_m = torch.rand(B, m, m, C, generator=gen, device=device) * 255
+            rnd = (torch.rand(B, m, generator=gen, device=device) - 0.5) * m
+            cases = [('y_random', rnd)]
+            if m != n:
+                cases.append(('y_glmo', glmo_shifts(B, m, C, device)[1]))
+            for case, shifts in cases:
+                out = shear_x_cuda(img_m, shifts, 1)
+                torch.cuda.synchronize()
+                err = float((out - shear_x_reference(img_m, shifts, 1))
+                            .abs().max())
+                check(err <= SHEAR_ATOL,
+                      f'shear C={C} {case} n={m}: max err {err}')
+                kern = rotating(lambda i, s: shear_x_cuda(i, s, 1),
+                                l2_cold_sets((img_m, shifts),
+                                             2 * img_m.numel() * 4))
+                rep = dict(shape=[B, m, m, C], max_abs_err=err,
+                           device_ms=kernel_device_ms(kern, 'shear_'))
+                rep['bound_ms'], rep['bound_by'] = shear_bound_ms(img_m,
+                                                                  shifts)
+                report[f'C{C}_{case}_n{m}'] = rep
+                log(f'[shear] C={C} {case} n={m}: {json.dumps(rep)}')
     report['rotated_crop'] = composed_rotated_crop(device)
     return report
 
@@ -816,9 +1045,13 @@ def main() -> int:
     phase_oracle(device)
     log(f'[phase] oracle: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    main_rep = phase_main(device)
+    main_rep, lm_inputs = phase_main(device)
     log(f'[phase] main path: {time.perf_counter() - t0:.1f} s')
     log(f'[main] {main_rep["crops_per_s"]:.1f} crops/s on {card}')
+    t0 = time.perf_counter()
+    lm.update(phase_lm_main_inputs(lm_inputs))
+    log(f'[phase] LM kernel on the main path\'s inputs: '
+        f'{time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
     shear = phase_shear(device)
     log(f'[phase] shear kernel vs plain: {time.perf_counter() - t0:.1f} s')
@@ -835,7 +1068,8 @@ def main() -> int:
         name='lm_refine', route='cuda', source='lc_tpu_torch/csrc/lm_refine.cu',
         replaces='lc_tpu/pnp/pallas_lm.py:32',
         launches=main_rep['lm_launches'],
-        max_abs_err=max(c['max_abs_err'] for c in lm.values()),
+        max_abs_err=max(c['max_abs_err'] for c in lm.values()
+                        if isinstance(c, dict) and 'max_abs_err' in c),
         ms=a['ms'], plain_ms=a['plain_ms'], bound_ms=a['bound_ms'],
         bound_by=a['bound_by'], library_ms=None,
         tolerance=TOL, cases=lm)]

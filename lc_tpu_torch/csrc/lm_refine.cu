@@ -4,62 +4,162 @@
 // pallas_lm_refine). Same function as lc_tpu_torch/pnp/solver.py::lm_refine,
 // the plain PyTorch version it is held against: per problem, a weighted
 // reprojection least squares over N points in the right-perturbation chart,
-// solved with Ceres's trust-region LM rules (see solver.py's docstring).
+// solved with Ceres's trust-region LM rules (see solver.py's docstring), with
+// the valid mask, the fewer-than-3-points rule and the fallback of an invalid
+// solve to its initial pose.
 //
-// What bounds it on this card: not bytes (about 0.9 MB of input at the main
-// path's B=32, N=1024) and not arithmetic (about 300 flops per point and
-// iteration), but the serial chain of each problem: every iteration is a
-// reduction over the points, a 6x6 Cholesky on one thread, a trial-cost
-// reduction and the trust-region decision, each waiting on the one before.
-//
-// Design, simple first: one thread block per problem, LM_THREADS threads.
-//  * The problem's points are loaded once into shared memory (7 floats each,
-//    28 KB at N = 1024) and stay there for the whole solve, so no iteration
-//    touches device memory.
-//  * Each evaluation strides the points over the threads; the 28 sums (cost,
-//    g[6], upper-triangular H[21]) are reduced with warp shuffles and one
-//    pass through shared memory; the trial cost is a one-value reduction.
-//  * Thread 0 does the Cholesky, the step and the trust-region update and
-//    publishes the state through shared memory; every thread then reads the
-//    same done flag, so the loop exit is uniform across the block.
-//  * Each block loops until its own problem is done: no lockstep with the
-//    slowest problem of the batch.
-// The fallback of invalid rows to their initial pose is applied by the
-// wrapper (pnp/lm_kernel.py), as pallas_lm.py does.
+// What bounds it on this card: neither bytes (about 0.9 MB of input at the
+// main path's B = 32, N = 1024) nor arithmetic (about 250 flops per point and
+// pass), but the serial chain of each problem's iterations: a pass over the
+// points, a reduction of the sums, a 6x6 solve and the trust-region
+// decision, each waiting on the one before. Its roofline bound (operations
+// over the f32 peak) is far below that chain. What the design does about
+// it:
+//  * One launch per call. The kernel takes the weights as given, (B, N) or
+//    (B, N, 2), and the valid mask as bool bytes or none; it applies the mask
+//    and counts the valid points in its first pass, applies fallback_to_init
+//    itself and writes every output into one buffer, so a call is one device
+//    operation.
+//  * A problem runs on a cluster of kCluster = 4 blocks of kThreads = 128
+//    threads. Each block takes a slice of the points: the pass over them,
+//    the largest part of an iteration at N = 1024 on one block, is split
+//    four ways, and B = 32 problems fill 128 of the 132 SMs. (One block of
+//    128, 256 or 512 threads, and clusters of 2, were slower; PERF.md.)
+//  * A block's slices of pts3d, pts2d, weights and valid reach shared memory
+//    by the bulk asynchronous copy (cp.async.bulk, one thread issuing,
+//    completion on an mbarrier); the ends of a slice that are not 16-byte
+//    aligned (under 16 bytes each) come by plain loads. The passes read the
+//    rows as they lie: pts3d's stride of 3 words is free of bank conflicts,
+//    so there is no conversion pass.
+//  * One pass over the points per iteration. It evaluates the trial pose's
+//    cost together with its gradient g and Gauss-Newton matrix H. On accept
+//    these are the next iteration's terms; on reject the terms of the last
+//    accepted pose, which every thread keeps in registers, are used again.
+//    The first pass, at the initial pose, is the initial cost. Two points
+//    are in flight per thread.
+//  * One barrier per iteration, of the cluster. A thread's 32 sums (cost,
+//    g[6], H's upper triangle [21], the valid count, 3 unused) are
+//    reduce-scattered over the warp in 31 shuffles, lane i ending with
+//    slot i; after the barrier every warp adds the per-warp
+//    slots of all the cluster's blocks (distributed shared memory) in the
+//    same order and broadcasts them by shuffles, so every thread holds the
+//    same bits. The per-warp slots alternate between two buffers, so the
+//    next pass writes without waiting for a second barrier.
+//  * No serial section: every thread solves the damped 6x6 system (LDL', no
+//    square roots), forms the step and applies the trust-region rule in
+//    registers on the same inputs, so the loop's exit is uniform without a
+//    flag in shared memory. What remains of each iteration is this chain of
+//    IEEE divisions and dependent multiply-adds.
+// IEEE division (no fast-math), for parity with the plain version.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// (no fast-math: the parity with the plain version needs IEEE div and sqrt).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define LM_THREADS 128
-#define LM_WARPS (LM_THREADS / 32)
-#define LM_NSUM 28  // cost, g[6], H upper triangle [21]
+namespace cg = cooperative_groups;
 
-#define LM_INITIAL_RADIUS 1e4f
-#define LM_MIN_RELATIVE_DECREASE 1e-3f
-#define LM_MIN_DIAGONAL 1e-6f
-#define LM_MAX_DIAGONAL 1e32f
+namespace {
 
-struct LMState {
-  float q[4], t[3];     // current (last accepted) pose
-  float qn[4], tn[3];   // trial pose
-  float cost, radius, decrease_factor;
-  float model_decrease;
-  float sums[LM_NSUM];  // reduced GN terms
-  float red[LM_WARPS * LM_NSUM];
-  float new_cost;
-  int chol_ok, done, it;
-};
+constexpr int kThreads = 128;  // threads per block
+constexpr int kCluster = 4;    // blocks per problem
+constexpr int kWarps = kThreads / 32;
+constexpr float kInitialRadius = 1e4f;
+constexpr float kMinRelativeDecrease = 1e-3f;
+constexpr float kMinDiagonal = 1e-6f;
+constexpr float kMaxDiagonal = 1e32f;
+constexpr int kValidSlot = 28;  // slots 0..27: cost, g[6], H upper [21]
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+// Shared-memory bytes of one input row of `bytes` bytes: rounded up to 16,
+// plus 16 so that the row can start at its source address modulo 16.
+__host__ __device__ inline size_t row_region(size_t bytes) {
+  return ((bytes + 15) & ~(size_t)15) + 16;
 }
 
-__device__ __forceinline__ void quat_to_R(const float* q, float* R) {
+// Dynamic shared memory of a block: the four rows and 16 bytes to align the
+// base.
+__host__ __device__ inline size_t smem_bytes(int N, int per_coord,
+                                             int has_valid) {
+  return row_region((size_t)12 * N) + row_region((size_t)8 * N) +
+         row_region((size_t)4 * (per_coord ? 2 : 1) * N) +
+         row_region(has_valid ? (size_t)N : 0) + 16;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// One input row of the block's problem: its bytes in device memory and where
+// they land in shared memory (at the same address modulo 16).
+struct Row {
+  const unsigned char* src;
+  uint32_t bytes;
+  unsigned char* dst;
+};
+
+// Copy the rows into shared memory: each row's 16-byte aligned interior by
+// one bulk copy that thread 0 issues on the mbarrier, the rest by plain byte
+// loads spread over the threads. Every thread returns after all bytes landed.
+__device__ void load_rows(const Row (&rows)[4], uint64_t* bar) {
+  const uint32_t bar_a = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  uintptr_t lo[4], hi[4];
+  uint32_t tx = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uintptr_t s = (uintptr_t)rows[i].src, e = s + rows[i].bytes;
+    lo[i] = (s + 15) & ~(uintptr_t)15;
+    hi[i] = e & ~(uintptr_t)15;
+    if (hi[i] <= lo[i]) lo[i] = hi[i] = e;  // no aligned interior
+    tx += (uint32_t)(hi[i] - lo[i]);
+  }
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                     bar_a),
+                 "r"(tx)
+                 : "memory");
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (hi[i] > lo[i]) {
+        const uintptr_t off = lo[i] - (uintptr_t)rows[i].src;
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];" ::"r"(smem_addr(rows[i].dst + off)),
+            "l"(rows[i].src + off), "r"((uint32_t)(hi[i] - lo[i])), "r"(bar_a)
+            : "memory");
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int head = (int)(lo[i] - (uintptr_t)rows[i].src);
+    const int tail_at = (int)(hi[i] - (uintptr_t)rows[i].src);
+    const int tail = (int)rows[i].bytes - tail_at;
+    for (int k = threadIdx.x; k < head + tail; k += kThreads) {
+      const int o = k < head ? k : tail_at + (k - head);
+      rows[i].dst[o] = rows[i].src[o];
+    }
+  }
+  uint32_t ready = 0;
+  while (!ready) {  // the barrier's first phase (parity 0)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ready)
+        : "r"(bar_a), "r"(0u)
+        : "memory");
+  }
+  __syncthreads();  // the plain-loaded bytes
+}
+
+__device__ __forceinline__ void quat_to_R(const float (&q)[4], float (&R)[9]) {
   const float w = q[0], x = q[1], y = q[2], z = q[3];
   const float s = 2.0f / (w * w + x * x + y * y + z * z);
   R[0] = 1.0f - s * (y * y + z * z);
@@ -73,67 +173,44 @@ __device__ __forceinline__ void quat_to_R(const float* q, float* R) {
   R[8] = 1.0f - s * (x * x + y * y);
 }
 
-// Shared-memory point arrays, structure of arrays.
+// The block's problem in shared memory, as the input rows lie.
 struct Points {
-  const float *X0, *X1, *X2, *u, *v, *wu, *wv;
+  const float* X;               // (N, 3)
+  const float* uv;              // (N, 2)
+  const float* w;               // (N, 2) or (N,)
+  const unsigned char* valid;   // (N,) bool bytes, or null: all valid
+  int n, per_coord;
 };
 
-// Weighted cost 0.5 * sum(w r^2) of the block's problem at (q, t); the result
-// is valid on thread 0 after the call.
-__device__ float block_cost(const Points& P, int N, const float* q,
-                            const float* t, const float* Kp, float* red) {
+// This thread's share of the 32 sums at pose (q, t): cost (without the
+// factor 1/2), g, H's upper triangle, the valid count.
+__device__ __forceinline__ void pass_terms(const Points& P,
+                                           const float (&Kp)[6],
+                                           const float (&q)[4],
+                                           const float (&t)[3],
+                                           float (&acc)[32]) {
   float R[9];
   quat_to_R(q, R);
   const float fx = Kp[0], k01 = Kp[1], cx = Kp[2];
   const float k10 = Kp[3], fy = Kp[4], cy = Kp[5];
-  float acc = 0.0f;
-  for (int n = threadIdx.x; n < N; n += LM_THREADS) {
-    const float X0 = P.X0[n], X1 = P.X1[n], X2 = P.X2[n];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) acc[k] = 0.0f;
+
+  // two points in flight per thread: their latency chains overlap
+#pragma unroll 2
+  for (int n = threadIdx.x; n < P.n; n += kThreads) {
+    const float X0 = P.X[3 * n], X1 = P.X[3 * n + 1], X2 = P.X[3 * n + 2];
+    // the plain version's w * valid
+    const float vf = P.valid ? (P.valid[n] ? 1.0f : 0.0f) : 1.0f;
+    const float wu = (P.per_coord ? P.w[2 * n] : P.w[n]) * vf;
+    const float wv = (P.per_coord ? P.w[2 * n + 1] : P.w[n]) * vf;
     const float p0 = R[0] * X0 + R[1] * X1 + R[2] * X2 + t[0];
     const float p1 = R[3] * X0 + R[4] * X1 + R[5] * X2 + t[1];
     const float p2 = R[6] * X0 + R[7] * X1 + R[8] * X2 + t[2];
     const float inv_z = 1.0f / fmaxf(p2, 1e-6f);
     const float u0 = p0 * inv_z, v0 = p1 * inv_z;
-    const float ru = fx * u0 + k01 * v0 + cx - P.u[n];
-    const float rv = k10 * u0 + fy * v0 + cy - P.v[n];
-    acc += P.wu[n] * ru * ru + P.wv[n] * rv * rv;
-  }
-  acc = warp_sum(acc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = acc;
-  __syncthreads();
-  float total = 0.0f;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < LM_WARPS; ++w) total += red[w];
-    total *= 0.5f;
-  }
-  __syncthreads();  // red may be reused right after
-  return total;
-}
-
-// Cost, gradient and upper-triangular Gauss-Newton matrix at (q, t), reduced
-// into S.sums (valid for every thread after the call).
-__device__ void block_gn_terms(const Points& P, int N, const float* Kp,
-                               LMState& S) {
-  float R[9];
-  quat_to_R(S.q, R);
-  const float fx = Kp[0], k01 = Kp[1], cx = Kp[2];
-  const float k10 = Kp[3], fy = Kp[4], cy = Kp[5];
-  const float t0 = S.t[0], t1 = S.t[1], t2 = S.t[2];
-  float acc[LM_NSUM];
-#pragma unroll
-  for (int k = 0; k < LM_NSUM; ++k) acc[k] = 0.0f;
-
-  for (int n = threadIdx.x; n < N; n += LM_THREADS) {
-    const float X0 = P.X0[n], X1 = P.X1[n], X2 = P.X2[n];
-    const float wu = P.wu[n], wv = P.wv[n];
-    const float p0 = R[0] * X0 + R[1] * X1 + R[2] * X2 + t0;
-    const float p1 = R[3] * X0 + R[4] * X1 + R[5] * X2 + t1;
-    const float p2 = R[6] * X0 + R[7] * X1 + R[8] * X2 + t2;
-    const float inv_z = 1.0f / fmaxf(p2, 1e-6f);
-    const float u0 = p0 * inv_z, v0 = p1 * inv_z;
-    const float ru = fx * u0 + k01 * v0 + cx - P.u[n];
-    const float rv = k10 * u0 + fy * v0 + cy - P.v[n];
+    const float ru = fx * u0 + k01 * v0 + cx - P.uv[2 * n];
+    const float rv = k10 * u0 + fy * v0 + cy - P.uv[2 * n + 1];
 
     // jacobian rows: d(u0, v0)/d(delta) then through K's 2x2 block.
     // rotation columns: dp/drot_k = R (e_k x X)
@@ -160,6 +237,7 @@ __device__ void block_gn_terms(const Points& P, int N, const float* Kp,
       jv[5] = k10 * a + fy * b;
     }
 
+    // the cost as the plain version forms it: (w r) r
     const float wru = wu * ru, wrv = wv * rv;
     acc[0] += wru * ru + wrv * rv;
 #pragma unroll
@@ -171,21 +249,61 @@ __device__ void block_gn_terms(const Points& P, int N, const float* Kp,
 #pragma unroll
       for (int j = i; j < 6; ++j) acc[k++] += wji * ju[j] + wvi * jv[j];
     }
+    acc[kValidSlot] += vf;
   }
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One level of the warp's reduce-scatter: a lane keeps one half of its 2W
+// slots, sends the other half to the lane W away and adds what it receives.
+// W is a template constant so that v stays in registers.
+template <int W>
+__device__ __forceinline__ void scatter_level(float (&v)[32], int lane) {
+  const bool upper = (lane & W) != 0;
 #pragma unroll
-  for (int k = 0; k < LM_NSUM; ++k) {
-    const float v = warp_sum(acc[k]);
-    if (lane == 0) S.red[warp * LM_NSUM + k] = v;
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? v[i] : v[i + W];
+    const float keep = upper ? v[i + W] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
   }
-  __syncthreads();
-  if (threadIdx.x < LM_NSUM) {
-    float s = 0.0f;
-    for (int w = 0; w < LM_WARPS; ++w) s += S.red[w * LM_NSUM + threadIdx.x];
-    S.sums[threadIdx.x] = threadIdx.x == 0 ? 0.5f * s : s;
+}
+
+// Reduce-scatter 32 values over the warp in 31 shuffles: lane i ends with
+// the warp's sum of slot i in v[0].
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+  scatter_level<16>(v, lane);
+  scatter_level<8>(v, lane);
+  scatter_level<4>(v, lane);
+  scatter_level<2>(v, lane);
+  scatter_level<1>(v, lane);
+}
+
+// The problem's sums of the first 29 slots over the blocks of its cluster,
+// the same bits in every thread. `red` is one of this block's two per-warp
+// buffers, [kWarps][32]; one cluster barrier, after which every thread reads
+// the buffers of all the cluster's blocks through distributed shared memory
+// and adds the slots in the same order.
+__device__ __forceinline__ void problem_sums(float (&v)[32], float* red,
+                                             float (&s)[29]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_reduce_scatter(v);
+  red[warp * 32 + lane] = v[0];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  float part[kCluster][kWarps];
+#pragma unroll
+  for (int r = 0; r < kCluster; ++r) {
+    const float* remote = cluster.map_shared_rank(red, r);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) part[r][w] = remote[w * 32 + lane];
   }
-  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kCluster; ++r)
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += part[r][w];
+#pragma unroll
+  for (int k = 0; k < 29; ++k) s[k] = __shfl_sync(0xffffffffu, total, k);
 }
 
 __device__ __forceinline__ int ut_index(int i, int j) {
@@ -193,57 +311,51 @@ __device__ __forceinline__ int ut_index(int i, int j) {
   return i * 6 - i * (i - 1) / 2 + (j - i);
 }
 
-// Thread 0: solve (H + mu * clip(diag H)) delta = -g by an unrolled Cholesky,
-// form the trial pose and the model decrease.
-__device__ void propose_step(LMState& S) {
-  const float* g = S.sums + 1;
-  const float* h = S.sums + 7;
-  const float mu = 1.0f / S.radius;
-  float A[6][6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int j = 0; j < 6; ++j)
-      A[i][j] = h[i <= j ? ut_index(i, j) : ut_index(j, i)];
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-    A[i][i] += mu * fminf(fmaxf(A[i][i], LM_MIN_DIAGONAL), LM_MAX_DIAGONAL);
-
-  float L[6][6];
-  int ok = 1;
+// Solve (H + clip(diag H) / radius) d = -g by an unrolled LDL' factorization
+// (Cholesky's pivots squared: the same positive-definiteness test without
+// its six square roots on the serial chain); return whether the matrix was
+// positive definite, and the model decrease of 0.5 r'Wr under the
+// linearized step (undamped H).
+__device__ __forceinline__ bool solve_step(const float (&g)[6],
+                                           const float (&h)[21], float radius,
+                                           float (&d)[6], float& decrease) {
+  const float mu = 1.0f / radius;
+  // L unit lower triangular, E[j][p] = L[j][p] * D[p], inv[j] = 1 / D[j]
+  float L[6][6], E[6][6], inv[6];
+  bool ok = true;
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
-    float acc = A[j][j];
+    const float hjj = h[ut_index(j, j)];
+    float dj = hjj + mu * fminf(fmaxf(hjj, kMinDiagonal), kMaxDiagonal);
 #pragma unroll
-    for (int p = 0; p < j; ++p) acc -= L[j][p] * L[j][p];
-    ok = ok && (acc > 0.0f);
-    const float Ljj = sqrtf(fmaxf(acc, 1e-30f));
-    L[j][j] = Ljj;
+    for (int p = 0; p < j; ++p) dj -= L[j][p] * E[j][p];
+    ok = ok && (dj > 0.0f);
+    dj = fmaxf(dj, 1e-30f);
+    inv[j] = 1.0f / dj;
 #pragma unroll
     for (int i = j + 1; i < 6; ++i) {
-      float a = A[i][j];
+      float a = h[ut_index(j, i)];
 #pragma unroll
-      for (int p = 0; p < j; ++p) a -= L[i][p] * L[j][p];
-      L[i][j] = a / Ljj;
+      for (int p = 0; p < j; ++p) a -= L[i][p] * E[j][p];
+      E[i][j] = a;
+      L[i][j] = a * inv[j];
     }
   }
-  float y[6], d[6];
+  float y[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     float acc = -g[i];
 #pragma unroll
     for (int p = 0; p < i; ++p) acc -= L[i][p] * y[p];
-    y[i] = acc / L[i][i];
+    y[i] = acc;
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
-    float acc = y[i];
+    float acc = y[i] * inv[i];
 #pragma unroll
     for (int p = i + 1; p < 6; ++p) acc -= L[p][i] * d[p];
-    d[i] = acc / L[i][i];
+    d[i] = acc;
   }
-
-  // model decrease of 0.5 r'Wr under the linearized step (undamped H)
   float gd = 0.0f, dHd = 0.0f;
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
@@ -254,167 +366,210 @@ __device__ void propose_step(LMState& S) {
     gd += g[i] * d[i];
     dHd += d[i] * Hd;
   }
-  S.model_decrease = -(gd + 0.5f * dHd);
-  S.chol_ok = ok;
+  decrease = -(gd + 0.5f * dHd);
+  return ok;
+}
 
-  // right perturbation through the Taylor chart: q' = q * quat(d_rot)
+// Right perturbation through the Taylor chart: q' = q * quat(d_rot),
+// t' = t + d_t.
+__device__ __forceinline__ void perturb(const float (&q)[4],
+                                        const float (&t)[3],
+                                        const float (&d)[6], float (&qn)[4],
+                                        float (&tn)[3]) {
   const float sq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
   const float bw = 1.0f - sq / 8.0f;
   const float f = 0.5f - sq / 48.0f;
   const float bx = d[0] * f, by = d[1] * f, bz = d[2] * f;
-  const float aw = S.q[0], ax = S.q[1], ay = S.q[2], az = S.q[3];
-  S.qn[0] = aw * bw - ax * bx - ay * by - az * bz;
-  S.qn[1] = aw * bx + ax * bw + ay * bz - az * by;
-  S.qn[2] = aw * by - ax * bz + ay * bw + az * bx;
-  S.qn[3] = aw * bz + ax * by - ay * bx + az * bw;
-  S.tn[0] = S.t[0] + d[3];
-  S.tn[1] = S.t[1] + d[4];
-  S.tn[2] = S.t[2] + d[5];
+  qn[0] = q[0] * bw - q[1] * bx - q[2] * by - q[3] * bz;
+  qn[1] = q[0] * bx + q[1] * bw + q[2] * bz - q[3] * by;
+  qn[2] = q[0] * by - q[1] * bz + q[2] * bw + q[3] * bx;
+  qn[3] = q[0] * bz + q[1] * by - q[2] * bx + q[3] * bw;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) tn[i] = t[i] + d[3 + i];
 }
 
-// Thread 0: Ceres's step acceptance and trust-region update.
-__device__ void update_region(LMState& S, float ftol) {
-  const float cost = S.cost, new_cost = S.new_cost;
-  const float md = S.model_decrease;
-  const float rho = (cost - new_cost) / fmaxf(md, 1e-30f);
-  const bool accept = S.chol_ok && md > 0.0f && rho > LM_MIN_RELATIVE_DECREASE &&
-                      isfinite(new_cost);
-  float radius;
-  if (accept) {
-    const float shrink = 2.0f * rho - 1.0f;
-    const float grow = fmaxf(1.0f / 3.0f, 1.0f - shrink * shrink * shrink);
-    radius = S.radius / grow;
-  } else {
-    radius = S.radius / S.decrease_factor;
-  }
-  radius = fminf(fmaxf(radius, 1e-32f), 1e16f);
-  S.decrease_factor = accept ? 2.0f : 2.0f * S.decrease_factor;
-  S.radius = radius;
-
-  const bool converged = accept && fabsf(cost - new_cost) <= ftol * cost;
-  const bool collapsed = radius <= 1e-32f;
-  const bool stalled = S.chol_ok && md <= ftol * fmaxf(cost, 1e-30f);
-  S.done = converged || collapsed || stalled;
-  if (accept) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) S.q[i] = S.qn[i];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) S.t[i] = S.tn[i];
-    S.cost = new_cost;
-  }
-  S.it += 1;
-}
-
-__global__ void __launch_bounds__(LM_THREADS)
+// Outputs, one buffer of 10 B floats and B bytes: pose (B, 7), cost (B,),
+// radius (B,), n_iter (B,) int32, then invalid (B,) bool. Problem b runs on
+// the blocks of cluster b; the block of rank r takes the r-th of kCluster
+// equal slices of the points.
+__global__ void __launch_bounds__(kThreads)
 lm_refine_kernel(const float* __restrict__ pose_in,  // (B, 7)
                  const float* __restrict__ K,        // (B, 3, 3)
                  const float* __restrict__ pts3d,    // (B, N, 3)
                  const float* __restrict__ pts2d,    // (B, N, 2)
-                 const float* __restrict__ w2,       // (B, N, 2)
-                 const int* __restrict__ n_valid,    // (B,)
-                 float* __restrict__ out_pose,       // (B, 7)
-                 bool* __restrict__ out_invalid,     // (B,)
-                 float* __restrict__ out_cost,       // (B,)
-                 int* __restrict__ out_iter,         // (B,)
-                 float* __restrict__ out_radius,     // (B,)
-                 int N, int max_iter, float ftol) {
-  extern __shared__ float pts_smem[];
-  __shared__ LMState S;
-  __shared__ float Kp[6];
-  const int b = blockIdx.x;
-  const size_t base = (size_t)b * N;
+                 const float* __restrict__ weights,  // (B, N, 2) or (B, N)
+                 const unsigned char* __restrict__ valid,  // (B, N) or null
+                 float* __restrict__ out, int B, int N, int per_coord,
+                 int max_iter, float ftol, int fallback) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[2][kThreads];  // two buffers of [kWarps][32] sums
+  __shared__ uint64_t bar;
+  const int b = blockIdx.x / kCluster;
+  const int rank = blockIdx.x % kCluster;  // the block's rank in its cluster
+  const int chunk = (N + kCluster - 1) / kCluster;
+  const int n0 = min(rank * chunk, N), n1 = min(n0 + chunk, N);
+  const size_t first = (size_t)b * N + n0, m = (size_t)(n1 - n0);
+  const int wc = per_coord ? 2 : 1;
 
-  Points P;
-  P.X0 = pts_smem;
-  P.X1 = pts_smem + N;
-  P.X2 = pts_smem + 2 * N;
-  P.u = pts_smem + 3 * N;
-  P.v = pts_smem + 4 * N;
-  P.wu = pts_smem + 5 * N;
-  P.wv = pts_smem + 6 * N;
-  for (int n = threadIdx.x; n < N; n += LM_THREADS) {
-    const float* X = pts3d + (base + n) * 3;
-    const float* x = pts2d + (base + n) * 2;
-    const float* w = w2 + (base + n) * 2;
-    pts_smem[n] = X[0];
-    pts_smem[N + n] = X[1];
-    pts_smem[2 * N + n] = X[2];
-    pts_smem[3 * N + n] = x[0];
-    pts_smem[4 * N + n] = x[1];
-    pts_smem[5 * N + n] = w[0];
-    pts_smem[6 * N + n] = w[1];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)smem_raw + 15) & ~(uintptr_t)15);
+  const unsigned char* src[4] = {
+      reinterpret_cast<const unsigned char*>(pts3d + first * 3),
+      reinterpret_cast<const unsigned char*>(pts2d + first * 2),
+      reinterpret_cast<const unsigned char*>(weights + first * wc),
+      valid ? valid + first : nullptr};
+  const uint32_t bytes[4] = {(uint32_t)(12 * m), (uint32_t)(8 * m),
+                             (uint32_t)(4 * wc * m),
+                             valid ? (uint32_t)m : 0u};
+  Row rows[4];
+  size_t off = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    rows[i] = {src[i], bytes[i], base + off + ((uintptr_t)src[i] & 15)};
+    off += row_region(bytes[i]);
   }
-  if (threadIdx.x == 0) {
-    const float* k = K + (size_t)b * 9;
-    Kp[0] = k[0]; Kp[1] = k[1]; Kp[2] = k[2];
-    Kp[3] = k[3]; Kp[4] = k[4]; Kp[5] = k[5];
-    const float* p = pose_in + (size_t)b * 7;
-    for (int i = 0; i < 4; ++i) S.q[i] = p[i];
-    for (int i = 0; i < 3; ++i) S.t[i] = p[4 + i];
-    S.radius = LM_INITIAL_RADIUS;
-    S.decrease_factor = 2.0f;
-    S.done = n_valid[b] < 3;
-    S.it = 0;
-  }
-  __syncthreads();
+  load_rows(rows, &bar);
+  const Points P = {reinterpret_cast<const float*>(rows[0].dst),
+                    reinterpret_cast<const float*>(rows[1].dst),
+                    reinterpret_cast<const float*>(rows[2].dst),
+                    valid ? rows[3].dst : nullptr, (int)m, per_coord};
 
-  const float cost0 = block_cost(P, N, S.q, S.t, Kp, S.red);
-  if (threadIdx.x == 0) S.cost = cost0;
+  float q[4], t[3], Kp[6];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = __ldg(pose_in + b * 7 + i);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t[i] = __ldg(pose_in + b * 7 + 4 + i);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) Kp[i] = __ldg(K + b * 9 + i);
 
-  while (true) {
-    __syncthreads();  // publishes thread 0's state update
-    if (S.done || S.it >= max_iter) break;
-    block_gn_terms(P, N, Kp, S);
-    if (threadIdx.x == 0) propose_step(S);
-    __syncthreads();
-    const float new_cost = block_cost(P, N, S.qn, S.tn, Kp, S.red);
-    if (threadIdx.x == 0) {
-      S.new_cost = new_cost;
-      update_region(S, ftol);
+  float v[32], s[29];
+  pass_terms(P, Kp, q, t, v);
+  problem_sums(v, red[0], s);
+  int buf = 1;
+  float cost = 0.5f * s[0], g[6], h[21];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) g[i] = s[1 + i];
+#pragma unroll
+  for (int i = 0; i < 21; ++i) h[i] = s[7 + i];
+  const bool too_few = s[kValidSlot] < 3.0f;
+
+  bool done = too_few;
+  int it = 0;
+  float radius = kInitialRadius, decrease_factor = 2.0f;
+  while (!done && it < max_iter) {
+    float d[6], model_decrease, qn[4], tn[3];
+    const bool chol_ok = solve_step(g, h, radius, d, model_decrease);
+    perturb(q, t, d, qn, tn);
+    // a step that cannot be accepted needs no trial cost
+    const bool tried = chol_ok && model_decrease > 0.0f;
+    float new_cost = cost;
+    if (tried) {
+      pass_terms(P, Kp, qn, tn, v);
+      problem_sums(v, red[buf], s);
+      buf ^= 1;
+      new_cost = 0.5f * s[0];
     }
+    // Ceres's step acceptance and trust-region update
+    const float rho = (cost - new_cost) / fmaxf(model_decrease, 1e-30f);
+    const bool accept = tried && rho > kMinRelativeDecrease &&
+                        isfinite(new_cost);
+    if (accept) {
+      const float shrink = 2.0f * rho - 1.0f;
+      const float grow =
+          fmaxf(1.0f / 3.0f, 1.0f - shrink * shrink * shrink);
+      radius = radius / grow;
+    } else {
+      radius = radius / decrease_factor;
+    }
+    radius = fminf(fmaxf(radius, 1e-32f), 1e16f);
+    decrease_factor = accept ? 2.0f : 2.0f * decrease_factor;
+    const bool converged = accept && fabsf(cost - new_cost) <= ftol * cost;
+    const bool collapsed = radius <= 1e-32f;
+    const bool stalled =
+        chol_ok && model_decrease <= ftol * fmaxf(cost, 1e-30f);
+    done = converged || collapsed || stalled;
+    if (accept) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = qn[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) t[i] = tn[i];
+      cost = new_cost;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) g[i] = s[1 + i];
+#pragma unroll
+      for (int i = 0; i < 21; ++i) h[i] = s[7 + i];
+    }
+    ++it;
   }
+  // no block leaves while another may still read its buffers
+  cg::this_cluster().sync();
 
-  if (threadIdx.x == 0) {
-    float* po = out_pose + (size_t)b * 7;
-    for (int i = 0; i < 4; ++i) po[i] = S.q[i];
-    for (int i = 0; i < 3; ++i) po[4 + i] = S.t[i];
-    const bool too_few = n_valid[b] < 3;
-    const bool ran_out = !S.done && S.it >= max_iter;
-    out_invalid[b] = too_few || ran_out;
-    out_cost[b] = S.cost;
-    out_iter[b] = S.it;
-    out_radius[b] = S.radius;
+  if (rank == 0 && threadIdx.x == 0) {
+    const bool invalid = too_few || !done;  // or ran out of iterations
+    const bool keep_init = fallback ? invalid : too_few;
+    float* pose = out + (size_t)b * 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pose[i] = keep_init ? pose_in[b * 7 + i] : q[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      pose[4 + i] = keep_init ? pose_in[b * 7 + 4 + i] : t[i];
+    out[(size_t)7 * B + b] = cost;
+    out[(size_t)8 * B + b] = radius;
+    reinterpret_cast<int*>(out + (size_t)9 * B)[b] = it;
+    reinterpret_cast<unsigned char*>(out + (size_t)10 * B)[b] = invalid;
   }
 }
 
+}  // namespace
+
 // C entry point: launches on `stream`, allocates nothing, returns
-// cudaGetLastError() of the launch (0 on success).
+// cudaGetLastError() of the launch (0 on success). `valid` may be null (all
+// points valid).
 extern "C" int lc_lm_refine(const float* pose_in, const float* K,
                             const float* pts3d, const float* pts2d,
-                            const float* w2, const int* n_valid,
-                            float* out_pose, bool* out_invalid,
-                            float* out_cost, int* out_iter, float* out_radius,
-                            int B, int N, int max_iter, float ftol,
+                            const float* weights, const unsigned char* valid,
+                            float* out, int B, int N, int per_coord,
+                            int max_iter, float ftol, int fallback,
                             void* stream) {
-  const size_t smem = (size_t)7 * N * sizeof(float);
+  const size_t smem =
+      smem_bytes((N + kCluster - 1) / kCluster, per_coord, valid != nullptr);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         lm_refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  lm_refine_kernel<<<B, LM_THREADS, smem, (cudaStream_t)stream>>>(
-      pose_in, K, pts3d, pts2d, w2, n_valid, out_pose, out_invalid, out_cost,
-      out_iter, out_radius, N, max_iter, ftol);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * kCluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, lm_refine_kernel, pose_in, K, pts3d, pts2d, weights, valid, out,
+      B, N, per_coord, max_iter, ftol, fallback);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// Largest point count one block can hold in shared memory on this device.
+// Largest point count a call takes on this device: a block's slice of
+// ceil(N / kCluster) points in the widest rows (per-coordinate weights and a
+// valid mask: 29 bytes a point) beside the kernel's static shared memory.
 extern "C" int lc_lm_max_points(int device) {
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return -1;
-  const int reserved = (int)(sizeof(LMState) + 6 * sizeof(float)) + 64;
-  return (optin - reserved) / (7 * (int)sizeof(float));
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, lm_refine_kernel) != cudaSuccess)
+    return -1;
+  // smem_bytes(n, 1, 1) <= 29 n + 4 * 31 + 16
+  const long room =
+      (long)optin - (long)attr.sharedSizeBytes - 4 * 31 - 16;
+  return room > 0 ? kCluster * (int)(room / 29) : 0;
 }

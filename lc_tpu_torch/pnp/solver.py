@@ -158,14 +158,14 @@ def lm_refine_auto(pose7_init, cam_K, pts3d, pts2d, weights, valid=None, *,
                    fallback_to_init: bool = True) -> LMResult:
     """LM refine dispatched on the tensors' device: a CUDA tensor goes to the
     fused kernel (pnp/lm_kernel.py), a CPU tensor to `lm_refine`. Both
-    branches take only what the kernel takes (lm_kernel.check_inputs)."""
-    from .lm_kernel import check_inputs, lm_refine_cuda
-    check_inputs(pose7_init, cam_K, pts3d, pts2d, weights, valid)
+    branches take only what the kernel takes, checked once here
+    (lm_kernel.check_inputs)."""
+    from . import lm_kernel
+    lm_kernel.check_inputs(pose7_init, cam_K, pts3d, pts2d, weights, valid)
     if pose7_init.is_cuda:
-        return lm_refine_cuda(pose7_init, cam_K, pts3d, pts2d, weights, valid,
-                              max_iter=max_iter,
-                              function_tolerance=function_tolerance,
-                              fallback_to_init=fallback_to_init)
+        return lm_kernel.launch(pose7_init, cam_K, pts3d, pts2d, weights,
+                                valid, max_iter, function_tolerance,
+                                fallback_to_init)
     return lm_refine(pose7_init, cam_K, pts3d, pts2d, weights, valid,
                      max_iter=max_iter, function_tolerance=function_tolerance,
                      fallback_to_init=fallback_to_init)

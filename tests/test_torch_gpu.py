@@ -50,18 +50,27 @@ def _agree(out, ref):
     assert torch.equal(out.invalid, ref.invalid)
 
 
-@pytest.mark.parametrize('case', ['final_refine', 'polish', 'edges_N1000'])
+@pytest.mark.parametrize('case', ['final_refine', 'polish', 'edges_N1000',
+                                  'weights_BN_no_valid_N1001',
+                                  'ran_out_fallback', 'ran_out_keep'])
 def test_kernel_matches_plain(cuda, case):
+    """N = 1000 leaves the valid rows, N = 1001 every row, off 16-byte
+    boundaries (the kernel's plain-load branch)."""
     from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
-    N = 1000 if case == 'edges_N1000' else 1024
+    N = {'edges_N1000': 1000, 'weights_BN_no_valid_N1001': 1001}.get(case, 1024)
     args = make_problem(32, N, seed=3, device=cuda,
-                        per_coord=case != 'polish')
-    kw = dict(max_iter=10, fallback_to_init=False) if case == 'polish' \
-        else dict(max_iter=50, fallback_to_init=True)
+                        per_coord=case not in ('polish',
+                                               'weights_BN_no_valid_N1001'))
+    kw = {'polish': dict(max_iter=10, fallback_to_init=False),
+          'ran_out_fallback': dict(max_iter=2, fallback_to_init=True),
+          'ran_out_keep': dict(max_iter=2, fallback_to_init=False)}.get(
+              case, dict(max_iter=50, fallback_to_init=True))
     if case == 'polish':
         args[4] = torch.ones_like(args[4])
     if case == 'edges_N1000':
         args[5][0, 2:] = False
+    if case == 'weights_BN_no_valid_N1001':
+        args[5] = None
     before = lm_refine_cuda.launches
     out = lm_refine_auto(*args, **kw)
     torch.cuda.synchronize()
@@ -69,6 +78,49 @@ def test_kernel_matches_plain(cuda, case):
     _agree(out, lm_refine(*args, **kw))
     if case == 'edges_N1000':
         assert bool(out.invalid[0]) and torch.equal(out.pose7[0], args[0][0])
+    if case.startswith('ran_out'):
+        ran_out = out.invalid & (out.n_iter == 2)
+        assert ran_out.any()
+        kept = (out.pose7[ran_out] == args[0][ran_out]).all(-1)
+        assert bool(kept.all()) if case == 'ran_out_fallback' \
+            else not bool(kept.all())
+
+
+def test_kernel_at_max_points(cuda):
+    """The largest N the wrapper takes, per-coordinate weights and a mask
+    (the widest rows), a quarter of it in each block of a problem's
+    cluster; one more point raises."""
+    from lc_tpu_torch.pnp import lm_kernel
+    N = lm_kernel.max_points(torch.cuda.current_device())
+    args = make_problem(4, N, seed=5, device=cuda)
+    out = lm_kernel.lm_refine_cuda(*args)
+    torch.cuda.synchronize()
+    _agree(out, lm_refine(*args))
+    big = make_problem(1, N + 1, seed=6, device=cuda)
+    with pytest.raises(ValueError, match='exceed'):
+        lm_kernel.lm_refine_cuda(*big)
+
+
+def test_kernel_call_is_one_device_operation(cuda, monkeypatch):
+    """A call through lm_refine_auto checks its inputs once and runs one
+    device operation (kernels, copies, memsets, from the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from lc_tpu_torch.pnp import lm_kernel
+    calls = []
+    real = lm_kernel.check_inputs
+    monkeypatch.setattr(lm_kernel, 'check_inputs',
+                        lambda *a: calls.append(1) or real(*a))
+    args = make_problem(32, 1024, seed=7, device=cuda)
+    lm_refine_auto(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            lm_refine_auto(*args)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert ops == 4, [(e.key, e.count) for e in prof.key_averages()]
+    assert len(calls) == 5
 
 
 def test_kernel_rejects_cpu_and_bad_dtype(cuda):
@@ -104,6 +156,21 @@ def test_shear_kernel_matches_plain(cuda, C, axis):
     ref = shear_x_reference(img, shifts, axis)
     assert (out - ref).abs().max().item() <= 5e-4
     assert torch.all((out[0, :3] if axis == 0 else out[0, :, :3]) == 0)
+
+
+@pytest.mark.parametrize('n', [384, 383, 97])
+@pytest.mark.parametrize('C', [1, 3])
+def test_shear_columns_nonlinear_shifts(cuda, C, n):
+    """The column pass with a random shift per column, uniform in ±n/2 (the
+    window exceeds a tile's shared memory and is walked in chunks), and
+    sizes that are not multiples of the 32 x 64 tile."""
+    from lc_tpu_torch.ops.warp import shear_x_cuda, shear_x_reference
+    g = torch.Generator(device=cuda).manual_seed(n + C)
+    img = torch.rand(3, n, n + 5, C, generator=g, device=cuda) * 255
+    shifts = (torch.rand(3, n + 5, generator=g, device=cuda) - 0.5) * n
+    out = shear_x_cuda(img, shifts, 1)
+    torch.cuda.synchronize()
+    assert (out - shear_x_reference(img, shifts, 1)).abs().max().item() <= 5e-4
 
 
 def test_shear_kernel_rejects_cpu_and_bad_dtype(cuda):

@@ -132,6 +132,97 @@ def test_auto_takes_the_plain_version_on_cpu():
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
+def test_auto_scalar_weights_match_lc_tpu_broadcast():
+    """Weights (B, N) on the port's dispatch against lc_tpu's solver with the
+    same weights broadcast to (B, N, 2)."""
+    pose, start, Ks, pts3d, uv, w = make_problem()
+    w1 = np.ascontiguousarray(w[..., 0])
+    port = lm_refine_auto(*(torch.from_numpy(a) for a in
+                            (start, Ks, pts3d, uv, w1)))
+    _agree(port, _jax(j_lm_refine, start, Ks, pts3d, uv,
+                      np.broadcast_to(w1[..., None], w.shape)))
+
+
+def test_auto_valid_none_matches_lc_tpu_all_true():
+    pose, start, Ks, pts3d, uv, w = make_problem(batch=2, n_pts=32)
+    port = lm_refine_auto(*(torch.from_numpy(a) for a in
+                            (start, Ks, pts3d, uv, w)), valid=None)
+    _agree(port, _jax(j_lm_refine, start, Ks, pts3d, uv, w,
+                      np.ones((2, 32), bool)))
+
+
+def test_auto_checks_inputs_once(monkeypatch):
+    """lm_refine_auto validates once and hands over; lm_refine_cuda, called
+    directly, validates once and raises for CPU tensors."""
+    from lc_tpu_torch.pnp import lm_kernel
+    calls = []
+    real = lm_kernel.check_inputs
+    monkeypatch.setattr(lm_kernel, 'check_inputs',
+                        lambda *a: calls.append(1) or real(*a))
+    pose, start, Ks, pts3d, uv, w = make_problem(batch=2, n_pts=16)
+    args = [torch.from_numpy(a) for a in (start, Ks, pts3d, uv, w)]
+    lm_refine_auto(*args, max_iter=2)
+    assert len(calls) == 1
+    with pytest.raises(ValueError, match='CUDA'):
+        lm_kernel.lm_refine_cuda(*args)
+    assert len(calls) == 2
+
+
+def test_output_views_match_the_kernel_layout():
+    """lm_refine.cu writes, into one f32 buffer, the pose of problem b at
+    words 7b..7b+6, its cost at 7B + b, radius at 8B + b, n_iter (int32) at
+    9B + b and invalid at byte 40B + b."""
+    from lc_tpu_torch.pnp.lm_kernel import output_views
+    B = 5
+    buf = torch.zeros(10 * B + (B + 3) // 4)
+    raw = buf.numpy()
+    words, octets = raw.view(np.int32), raw.view(np.uint8)
+    for b in range(B):
+        raw[7 * b:7 * b + 7] = np.arange(7) + 10 * b
+        raw[7 * B + b] = 0.5 + b
+        raw[8 * B + b] = 100.0 + b
+        words[9 * B + b] = b - 2
+        octets[40 * B + b] = b % 2
+    out = output_views(buf, B)
+    assert out.pose7.shape == (B, 7) and out.pose7.is_contiguous()
+    np.testing.assert_array_equal(
+        out.pose7.numpy(), np.arange(7)[None] + 10 * np.arange(B)[:, None])
+    np.testing.assert_array_equal(out.cost.numpy(), 0.5 + np.arange(B))
+    np.testing.assert_array_equal(out.radius.numpy(), 100.0 + np.arange(B))
+    assert out.n_iter.dtype == torch.int32
+    assert out.n_iter.tolist() == [b - 2 for b in range(B)]
+    assert out.invalid.dtype == torch.bool
+    assert out.invalid.tolist() == [b % 2 == 1 for b in range(B)]
+    empty = output_views(torch.empty(0), 0)
+    assert empty.pose7.shape == (0, 7) and empty.invalid.shape == (0,)
+
+
+@pytest.mark.parametrize('bad', ['dtype', 'shape', 'contiguity', 'valid',
+                                 'device'])
+def test_auto_rejects_what_the_kernel_does_not_take(bad):
+    """lm_refine_auto raises on the CPU exactly what the kernel's check
+    raises: TypeError for a dtype, ValueError for a shape, a device or
+    contiguity."""
+    pose, start, Ks, pts3d, uv, w = make_problem(batch=2, n_pts=16)
+    args = dict(pose7_init=torch.tensor(start), cam_K=torch.tensor(Ks),
+                pts3d=torch.tensor(pts3d), pts2d=torch.tensor(uv),
+                weights=torch.tensor(w), valid=None)
+    if bad == 'dtype':
+        args['weights'] = args['weights'].double()
+    elif bad == 'shape':
+        args['weights'] = args['weights'][:, :8]
+    elif bad == 'contiguity':
+        args['pts2d'] = args['pts2d'].transpose(0, 1).contiguous() \
+            .transpose(0, 1)
+    elif bad == 'valid':
+        args['valid'] = torch.ones(2, 16, dtype=torch.uint8)
+    else:
+        args['cam_K'] = args['cam_K'].to('meta')
+    with pytest.raises(TypeError if bad in ('dtype', 'valid') else ValueError,
+                       match='lm_refine'):
+        lm_refine_auto(**args)
+
+
 @pytest.mark.parametrize('bad', ['dtype', 'shape', 'contiguity', 'valid'])
 def test_kernel_input_checks(bad):
     pose, start, Ks, pts3d, uv, w = make_problem(batch=2, n_pts=16)
