@@ -7,21 +7,30 @@ Phases, each of which fails the run on error:
   1. versions, the card's name and power limit; build every CUDA kernel from
      lc_tpu_torch/csrc with nvcc (one process per source, all at once);
   2. each kernel against its plain PyTorch version on the card, at the shapes
-     the main path gives it, with the stated tolerance, and both timed with
+     the main paths give it, with the stated tolerance, and both timed with
      CUDA events; for the LM kernel (B1) also the weight and mask forms,
-     ragged rows, running out of iterations with either fallback, and one
-     device operation per call;
-  3. the oracle path: frames rendered in memory, the exact NOC map fed to
-     inference.solve_pnp_dense as network output; poses must recover and
-     the LM kernel must run exactly 3 times (2 LO-RANSAC polishes + 1 final
-     refine);
-  4. the main path: harness.run_test with CDPN-ResNet34 at the widths of
-     configs/glmo.yaml (256² in, 64² out, batch 32), seeded weights carried
-     in through state_dict_from_flax, in-memory batches and evaluator;
-     kernel launch counts are zeroed just before and read just after; then
-     the LM kernel against its plain version on that path's own inputs (one
-     batch's final refine and first LO polish; a problem more than the
-     tolerance away is held to the plain version on its points reordered);
+     ragged rows, running out of iterations with either fallback, zlmo's
+     16,384 points and gsplmo's 16 a problem, its ceiling of points (beyond
+     it a call raises), and one device operation per call;
+  3. the oracles: frames rendered in memory, the outputs a perfect network
+     would give fed to the path's solve as network output (glmo: the exact
+     NOC map; zlmo: the exact Gray logits of it; gsplmo: keypoint heatmaps
+     peaked at the GT projections); poses must recover and the LM kernel
+     must run exactly 3 times (2 LO-RANSAC polishes + 1 final refine);
+  4. the main paths, each through harness.run_test on in-memory batches
+     and evaluator, seeded weights carried in through state_dict_from_flax,
+     kernel launch counts zeroed just before and read just after, then a
+     stage breakdown of one more batch: glmo (CDPN-ResNet34, 256² in, 64²
+     out, batch 32), zlmo (ZebraDeepLabV3 with 20 Gray bits, 128² out,
+     every pixel a correspondence, quantile_in_mask, per-crop thresholds,
+     weighted_filtered; the random head's visibility logit shifted so that
+     its mask keeps the object's share of the grid; with the bf16 forward's
+     Gray bits against f32's), gsplmo (the 16-keypoint head, ransac +
+     weighted); then the LM kernel against its plain version on every
+     path's own inputs (both LO polishes and the final refine of each
+     oracle's solve and of each path's last batch, over LM_SWEEP_SEEDS
+     RANSAC draws), a problem outside the tolerance judged by the plain
+     version in float64 (referee);
   5. the shear kernel (B2) against its plain version at the glmo rotated
      crop's shapes, timed beside grid_sample over buffers the L2 cannot
      hold, the column pass on random per-column shifts and sizes off its
@@ -36,7 +45,9 @@ Phases, each of which fails the run on error:
      generated BOP tree (glmo widths and batch, device_rotate, background
      images, the host loader in threads), six steps with an evaluation
      through harness.run_test after step 3, counts zeroed before and read
-     after; then `python -m lc_tpu_torch.test` on its model_final;
+     after; then `python -m lc_tpu_torch.test` on its model_final; then the
+     test CLI on configs/zsyn.yaml's and configs/gspsyn.yaml's generated
+     trees (3 batches each, random-weight .pth files);
   8. one JSON line of kernel numbers, the card line, and the final
      {"ok": true, "device": ...} line.
 Imports torch, numpy, scipy, the standard library and the port only. Exits
@@ -61,10 +72,28 @@ PEAK_F32_FLOPS = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 # glmo (configs/glmo.yaml): widths, batch, point selection, solvers
-GLMO = dict(net_input_wh=(256, 256), net_output_wh=(64, 64), batch_size=32,
-            quantile=0.3, dense_sample=2)
+GLMO = dict(net_name='cdpn_resnet', net_input_wh=(256, 256),
+            net_output_wh=(64, 64), batch_size=32, dense_sample=2,
+            point_select='quantile', quantile=0.3, solvers=('weighted',))
+# zlmo (configs/zlmo.yaml): the zebra family, Gray codes of up to 7 bits an
+# axis (7/7/6 for the synthetic box) under black_background, every pixel of
+# the 128² output a correspondence (16,384 a problem)
+ZLMO = dict(net_name='zebra_DeepLabV3', net_input_wh=(256, 256),
+            net_output_wh=(128, 128), batch_size=32, max_bit_cnt=7,
+            black_background=True, dense_sample=1,
+            point_select='quantile_in_mask', quantile=0.2,
+            rel_reproj_err=True, solvers=('weighted_filtered',))
+# gsplmo (configs/gsplmo.yaml): the sparse family, 16 keypoints
+GSPLMO = dict(net_name='cdpn_resnet', net_input_wh=(256, 256),
+              net_output_wh=(64, 64), batch_size=32, sparse_cnt=16,
+              solvers=('ransac', 'weighted'))
+# the synthetic box of data/synthetic.py (render_eval_set's default)
+BOX_HALF_EXTENTS = (40.0, 30.0, 20.0)
 N_BATCHES = 3
-# kernel-vs-plain tolerance (that of tests/test_pallas_lm.py)
+# the RANSAC draws of each path's batch whose LM inputs the kernel is held on
+LM_SWEEP_SEEDS = range(4)
+# kernel-vs-plain tolerance (that of tests/test_pallas_lm.py); the cost's
+# relative error is taken beyond float32's floor (cost_floor)
 TOL = dict(translation_atol=0.05, quat_dot_min=1 - 1e-5, cost_rtol=1e-3)
 # the shear kernel against its plain version: atol on 0-255 values (that of
 # tests/test_pallas_warp.py)
@@ -178,57 +207,235 @@ def lm_problem(B, N, seed, valid_frac, per_coord, device):
     return [x.to(device).contiguous() for x in (start, Ks, pts3d, uv, w, valid)]
 
 
-def lm_agreement(out, ref, keep=None) -> dict:
-    """The kernel's result `out` against the plain version's `ref`; the
-    translation and max_abs_err over the problems in `keep` (all if None)."""
+def cost_floor(args):
+    """Per problem, the least cost difference float32 can resolve: the cost
+    0.5 Σ w r² of a residual of two ulps of each pixel coordinate at every
+    valid point (the projection and the target each rounded once). Near a
+    cost of 0 (exact correspondences) a relative tolerance alone is below
+    it."""
     import torch
-    # the cosine of the two rotations' quaternions: the main path's poses
-    # (RANSAC's, refined) are not of unit norm
-    qa, qb = out.pose7[:, :4], ref.pose7[:, :4]
-    qd = (qa * qb).sum(-1) / (qa.norm(dim=-1) * qb.norm(dim=-1)).clamp(
-        min=1e-30)
+    pts2d, w, valid = args[3], args[4], args[5]
+    a = pts2d.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float('inf'))) - a
+    c = (w if w.dim() == 3 else w[..., None]) * (2 * ulp) ** 2
+    if valid is not None:
+        c = c * valid[..., None]
+    return 0.5 * c.sum((-1, -2))
+
+
+def pose_gap(a, b):
+    """Per problem, of two (B, 7) poses: the translation distance (max-abs,
+    mm; inf where either is not finite) and the cosine |q·q'| of the two
+    rotations' quaternions (the main paths' poses, RANSAC's refined, are
+    not of unit norm)."""
+    import torch
+    t = (a[:, 4:].double() - b[:, 4:].double()).abs().amax(-1)
+    qa, qb = a[:, :4].double(), b[:, :4].double()
+    qd = ((qa * qb).sum(-1) / (qa.norm(dim=-1) * qb.norm(dim=-1)).clamp(
+        min=1e-30)).abs()
+    inf = float('inf')
+    return torch.nan_to_num(t, nan=inf, posinf=inf), torch.nan_to_num(qd)
+
+
+def cost_agrees(cost, other, floor):
+    """Per problem, whether the f32 `cost` agrees with `other` (f32 or f64)
+    within TOL's relative error beyond `floor` (cost_floor), or equals it in
+    float32 (a cost past float32's range is inf in both)."""
+    err = (cost.double() - other.double()).abs() - floor.double()
+    return (cost == other.float()) | (err <= TOL['cost_rtol']
+                                      * other.double().abs())
+
+
+def within_tol(out, other, args):
+    """Per problem, whether `out` agrees with `other` within TOL: the
+    translation, the rotation, the cost (relative to other's, beyond
+    cost_floor) and the invalid flag."""
+    t, qd = pose_gap(out.pose7, other.pose7)
+    cost_ok = cost_agrees(out.cost, other.cost, cost_floor(args))
+    return ((t <= TOL['translation_atol']) & (qd >= TOL['quat_dot_min'])
+            & cost_ok & (out.invalid == other.invalid))
+
+
+def lm_agreement(out, ref, args, keep) -> dict:
+    """The kernel's result `out` against the plain version's `ref` on the
+    inputs `args`, over the problems in `keep`: the largest translation
+    error, the least rotation cosine, the largest cost error relative to
+    the plain version's cost beyond cost_floor, whether the invalid flags
+    are equal, the largest error of any pose entry."""
+    import torch
+    t, qd = pose_gap(out.pose7, ref.pose7)
     aligned = out.pose7.clone()
-    aligned[:, :4] *= torch.where(qd < 0, -1.0, 1.0)[:, None]   # q ~ -q
-    rel = (out.cost - ref.cost).abs() / ref.cost.abs().clamp(min=1e-12)
-    if keep is None:
-        keep = torch.ones_like(out.invalid)
+    signs = torch.sign((out.pose7[:, :4] * ref.pose7[:, :4]).sum(-1))
+    aligned[:, :4] *= torch.where(signs < 0, -1.0, 1.0)[:, None]   # q ~ -q
+    rel = ((out.cost - ref.cost).abs() - cost_floor(args)).clamp(min=0) \
+        / ref.cost.abs().clamp(min=1e-30)
+    pick = lambda x, empty: x[keep] if bool(keep.any()) else empty  # noqa
     return dict(
-        max_translation_err=float(
-            (out.pose7[keep, 4:] - ref.pose7[keep, 4:]).abs().max()),
-        min_quat_dot=float(qd.abs().min()),
-        max_cost_rel_err=float(rel.max()),
-        invalid_equal=bool((out.invalid == ref.invalid).all()),
-        max_abs_err=float((aligned[keep] - ref.pose7[keep]).abs().max()),
+        max_translation_err=float(pick(t, torch.zeros(1)).max()),
+        min_quat_dot=float(pick(qd, torch.ones(1)).min()),
+        max_cost_rel_err=float(pick(rel, torch.zeros(1)).max()),
+        invalid_equal=bool((out.invalid == ref.invalid)[keep].all()),
+        max_abs_err=float(pick((aligned - ref.pose7).abs().amax(-1),
+                               torch.zeros(1)).max()),
         n_iter_kernel=int(out.n_iter.sum()), n_iter_plain=int(ref.n_iter.sum()))
 
 
-def translation_err(a, b):
-    return (a.pose7[:, 4:] - b.pose7[:, 4:]).abs().amax(-1)
-
-
-def order_sensitive(args, kw, out, ref, orders: int = 8) -> dict:
-    """The problems on which the kernel's translation is more than TOL from
-    the plain version's, each with the plain version run again with its
-    points in `orders` other orders (seeded permutations): the same problem,
-    only the order of the float32 sums differs. Returns {problem: (error
-    against the plain version as given, the least error against a
-    reordered one)}."""
+def float32_runs(args, kw, runs: int = 8) -> list:
+    """The plain version in float32 on `runs` other float32 renderings of
+    the same problems (seeded): every other run with the points in another
+    order, the rest with each pixel target moved by at most one ulp."""
     import torch
     from lc_tpu_torch.pnp.solver import lm_refine
-    far = translation_err(out, ref) > TOL['translation_atol']
-    if not bool(far.any()):
-        return {}
     gen = torch.Generator().manual_seed(0)
-    nearest = torch.full_like(out.cost, float('inf'))
-    for _ in range(orders):
-        p = torch.randperm(args[2].shape[1], generator=gen).to(args[2].device)
-        moved = [a[:, p].contiguous() if a is not None else None
-                 for a in args[2:]]
-        nearest = torch.minimum(nearest, translation_err(
-            out, lm_refine(*args[:2], *moved, **kw)))
-    err = translation_err(out, ref)
-    return {int(b): (float(err[b]), float(nearest[b]))
-            for b in far.nonzero()[:, 0]}
+    results = []
+    for i in range(runs):
+        if i % 2 == 0:
+            p = torch.randperm(args[2].shape[1], generator=gen).to(
+                args[2].device)
+            moved = list(args[:2]) + [a[:, p].contiguous() if a is not None
+                                      else None for a in args[2:]]
+        else:
+            uv = args[3]
+            a = uv.abs()
+            ulp = torch.nextafter(a, torch.full_like(a, float('inf'))) - a
+            step = torch.randint(-1, 2, uv.shape, generator=gen).to(uv)
+            moved = list(args[:3]) + [uv + step * ulp] + list(args[4:])
+        results.append(lm_refine(*moved, **kw))
+    return results
+
+
+def referee(args, kw, out, ref, problems) -> list:
+    """The problems in `problems` (those on which the kernel's result `out`
+    is outside TOL of the f32 plain version's `ref`), judged by the plain
+    version in float64 on the same inputs (the referee) and by the f32
+    plain version's spread about it: that run as given and float32_runs.
+
+    A problem's pose is determined in float32 when every f32 run lies within
+    TOL of the referee (translation, rotation); its invalid flag when,
+    besides, every f32 run has the referee's flag and the referee's cost is
+    above cost_floor (below it the residuals are rounding, and the
+    convergence test, relative to the cost, compares noise). On a
+    determined pose the kernel must agree with the referee within TOL
+    (translation, rotation, cost beyond cost_floor, and the flag where it is
+    determined), or lie within TOL of an iterate of the referee's own path
+    (`on_referee_path_at`, the path continued past its stopping test) where
+    the referee's cost was within function_tolerance of its final cost: two
+    float32 solvers stop an iteration apart where that test (the model
+    decrease, or an accepted cost decrease, against function_tolerance x
+    the cost) is decided by the rounding of a gradient that cancels to a
+    few significant digits near the minimum. Otherwise float32 does not
+    determine the answer (a flat minimum, a trajectory cut at max_iter):
+    the kernel's translation distance from the referee is ranked among the
+    f32 runs', and `farthest` marks a kernel farther than all of them, which
+    for a kernel computing the plain version's function happens by chance
+    in about 1 of 10 such problems (10 float32 solvers, one of them
+    farthest). One row per problem."""
+    import torch
+    from lc_tpu_torch.pnp.solver import lm_refine
+    a64 = [a.double() if a is not None and a.is_floating_point() else a
+           for a in args]
+    r64 = lm_refine(*a64, **kw)
+    runs = [ref] + float32_runs(args, kw)
+    gaps = [pose_gap(run.pose7, r64.pose7) for run in runs]
+    t_runs = torch.stack([g[0] for g in gaps], -1)
+    determined = ((t_runs <= TOL['translation_atol']).all(-1)
+                  & (torch.stack([g[1] for g in gaps], -1)
+                     >= TOL['quat_dot_min']).all(-1))
+    floor = cost_floor(args).double()
+    flag_determined = (r64.cost > floor) & (torch.stack(
+        [r.invalid for r in runs], -1) == r64.invalid[:, None]).all(-1)
+    t_k, q_k = pose_gap(out.pose7, r64.pose7)
+    agrees = ((t_k <= TOL['translation_atol']) & (q_k >= TOL['quat_dot_min'])
+              & cost_agrees(out.cost, r64.cost, floor)
+              & ((out.invalid == r64.invalid) | ~flag_determined))
+    # where the kernel stopped elsewhere on a determined problem: the
+    # iterate of the referee's own path (continued past its stopping test,
+    # function_tolerance 0) that it lies at, with the kernel's cost, where
+    # the referee's cost was already within function_tolerance of its end
+    path_at = torch.full_like(out.n_iter, -1)
+    off = (problems & determined & ~agrees).nonzero()[:, 0]
+    if len(off):
+        sub = [a[off] if a is not None else None for a in a64]
+        end = r64.cost[off]
+        ftol = kw.get('function_tolerance', 1e-6)
+        for k in range(kw.get('max_iter', 50) + 1):
+            it = lm_refine(*sub, **dict(kw, max_iter=k, function_tolerance=0.0,
+                                        fallback_to_init=False))
+            t, q = pose_gap(out.pose7[off], it.pose7)
+            hit = ((t <= TOL['translation_atol'])
+                   & (q >= TOL['quat_dot_min'])
+                   & cost_agrees(out.cost[off], it.cost, floor[off])
+                   & (it.cost - end <= ftol * end.abs())
+                   & (path_at[off] < 0))
+            path_at[off[hit]] = k
+    rows = []
+    for b in problems.nonzero()[:, 0].tolist():
+        rows.append(dict(
+            problem=b, determined=bool(determined[b]),
+            flag_determined=bool(flag_determined[b]),
+            agrees_with_referee=bool(agrees[b]),
+            on_referee_path_at=int(path_at[b]) if path_at[b] >= 0 else None,
+            kernel_to_referee_mm=float(t_k[b]),
+            plain_to_referee_mm=float(t_runs[b, 0]),
+            f32_runs_to_referee_mm=[float(t_runs[b].min()),
+                                    float(t_runs[b].max())],
+            farthest=bool(t_k[b] > t_runs[b].max()),
+            invalid=[bool(out.invalid[b]), bool(ref.invalid[b]),
+                     bool(r64.invalid[b])]))
+    return rows
+
+
+def lm_case(args, kw, name: str = '', refer: bool = False,
+            timed: bool = True):
+    """lm_refine_cuda against lm_refine on the same inputs, within TOL;
+    if `timed`, the kernel timed per wrapper call (CUDA events) and alone
+    (profiler).
+
+    refer (the paths' own inputs, where some problems are ill-posed: random
+    networks' correspondences, exact ones at a cost of 0, LO polishes cut
+    at 10 iterations): a problem outside TOL goes to the referee, and must
+    agree with it where float32 determines the answer; the others are
+    listed under 'referred' and left out of the agreement's maxima. Returns
+    the report and the kernel's result."""
+    import torch
+    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
+    from lc_tpu_torch.pnp.solver import lm_refine
+    out = lm_refine_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    ref = lm_refine(*args, **kw)
+    inside = within_tol(out, ref, args)
+    rows = referee(args, kw, out, ref, ~inside) if refer and not bool(
+        inside.all()) else []
+    agr = lm_agreement(out, ref, args, inside if refer else
+                       torch.ones_like(inside))
+    if refer:
+        agr['referred'] = rows
+        check(all(r['agrees_with_referee'] or r['on_referee_path_at']
+                  is not None for r in rows if r['determined']),
+              f'LM kernel vs the float64 referee, {name}: {agr}')
+    else:
+        check(agr['max_translation_err'] <= TOL['translation_atol']
+              and agr['min_quat_dot'] >= TOL['quat_dot_min']
+              and agr['max_cost_rel_err'] <= TOL['cost_rtol']
+              and agr['invalid_equal'], f'LM kernel vs plain, {name}: {agr}')
+    B, N = args[2].shape[:2]
+    valid = args[5]
+    agr['shape'] = dict(B=B, N=N, weights=list(args[4].shape[2:]),
+                        valid=valid is not None,
+                        max_iter=kw.get('max_iter', 50),
+                        fallback_to_init=kw.get('fallback_to_init', True))
+    agr['valid_points_per_problem'] = float(
+        valid.sum(-1).float().mean()) if valid is not None else float(N)
+    agr['n_iter_mean'] = float(out.n_iter.float().mean())
+    agr['n_iter_max'] = int(out.n_iter.max())
+    if timed:
+        agr['ms'] = median_call_ms(lambda: lm_refine_cuda(*args, **kw))
+        agr['device_ms'] = kernel_device_ms(
+            lambda: lm_refine_cuda(*args, **kw), 'lm_refine_kernel', reps=20)
+        agr['plain_ms'] = time_ms(lambda: lm_refine(*args, **kw), reps=3,
+                                  warmup=1)
+        agr['bound_ms'], agr['bound_by'] = lm_bound_ms(args, out)
+    return agr, out
 
 
 def lm_bound_ms(args, out) -> tuple[float, str]:
@@ -271,55 +478,6 @@ def device_ops_per_call(fn, reps: int = 10) -> float:
     return max(counts) / reps
 
 
-def lm_case(args, kw, reorder_witness: bool = False):
-    """lm_refine_cuda against lm_refine on the same inputs, within TOL; the
-    kernel timed per wrapper call (CUDA events) and alone (profiler).
-
-    reorder_witness (the main path's own inputs, from a network with random
-    weights, where some problems' minima are shallow): a problem whose
-    translation is more than TOL from the plain version's agrees if it is
-    within TOL of the plain version's on the same points in another order
-    (order_sensitive). Such problems are listed under their own key and
-    left out of max_translation_err and max_abs_err. Returns the report and
-    the kernel's result."""
-    import torch
-    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
-    from lc_tpu_torch.pnp.solver import lm_refine
-    out = lm_refine_cuda(*args, **kw)
-    torch.cuda.synchronize()
-    ref = lm_refine(*args, **kw)
-    sensitive = order_sensitive(args, kw, out, ref) if reorder_witness else {}
-    keep = torch.ones_like(out.invalid)
-    keep[list(sensitive)] = False
-    agr = lm_agreement(out, ref, keep)
-    if reorder_witness:
-        agr['order_sensitive'] = [
-            dict(problem=b, translation_err=e, nearest_reordered_plain=r)
-            for b, (e, r) in sensitive.items()]
-    check(agr['max_translation_err'] <= TOL['translation_atol']
-          and all(r <= TOL['translation_atol']
-                  for _, r in sensitive.values())
-          and agr['min_quat_dot'] >= TOL['quat_dot_min']
-          and agr['max_cost_rel_err'] <= TOL['cost_rtol']
-          and agr['invalid_equal'], f'LM kernel vs plain: {agr}')
-    B, N = args[2].shape[:2]
-    valid = args[5]
-    agr['shape'] = dict(B=B, N=N, weights=list(args[4].shape[2:]),
-                        valid=valid is not None,
-                        max_iter=kw.get('max_iter', 50),
-                        fallback_to_init=kw.get('fallback_to_init', True))
-    agr['valid_points_per_problem'] = float(
-        valid.sum(-1).float().mean()) if valid is not None else float(N)
-    agr['n_iter_mean'] = float(out.n_iter.float().mean())
-    agr['n_iter_max'] = int(out.n_iter.max())
-    agr['ms'] = median_call_ms(lambda: lm_refine_cuda(*args, **kw))
-    agr['device_ms'] = kernel_device_ms(
-        lambda: lm_refine_cuda(*args, **kw), 'lm_refine_kernel', reps=20)
-    agr['plain_ms'] = time_ms(lambda: lm_refine(*args, **kw), reps=3, warmup=1)
-    agr['bound_ms'], agr['bound_by'] = lm_bound_ms(args, out)
-    return agr, out
-
-
 def phase_lm(device) -> dict:
     import torch
     from lc_tpu_torch.pnp import lm_kernel
@@ -345,17 +503,43 @@ def phase_lm(device) -> dict:
         'f_ran_out_keep': (dict(B=B, N=N, seed=4, valid_frac=0.7,
                                 per_coord=True),
                            dict(max_iter=2, fallback_to_init=False)),
+        # zlmo's problem size: every pixel of the 128² output, a quarter of
+        # them (~116 KB) in each block's shared memory
+        'g_zebra_N16384': (dict(B=ZLMO['batch_size'],
+                                N=int(np.prod(ZLMO['net_output_wh'])),
+                                seed=5, valid_frac=0.7, per_coord=True),
+                           final),
+        # gsplmo's: 16 keypoints, 4 a block, no mask
+        'h_sparse_N16': (dict(B=GSPLMO['batch_size'], N=GSPLMO['sparse_cnt'],
+                              seed=6, valid_frac=1.0, per_coord=True), final),
     }
     report = {}
+    # the kernel holds zlmo's 16,384 points a problem, and raises beyond its
+    # ceiling rather than falling back to the plain version
+    ceiling = lm_kernel.max_points(torch.cuda.current_device())
+    report['max_points'] = ceiling
+    log(f'[lm] max points a problem on this card: {ceiling}')
+    check(ceiling >= int(np.prod(ZLMO['net_output_wh'])),
+          f'the LM kernel holds {ceiling} points, zlmo needs 16384')
+    over = lm_problem(B=1, N=ceiling + 4, seed=7, valid_frac=1.0,
+                      per_coord=True, device=device)
+    before = lm_kernel.lm_refine_cuda.launches
+    try:
+        lm_kernel.lm_refine_cuda(*over)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and lm_kernel.lm_refine_cuda.launches == before,
+          f'{ceiling + 4} points did not raise')
     for name, (pk, kw) in cases.items():
         args = lm_problem(device=device, **pk)
         if name == 'b_polish':
             args[4] = torch.ones_like(args[4])            # unit weights
         if name == 'c_edges_N1000':
             args[5][0, 2:] = False                        # < 3 valid points
-        if name.startswith('d_'):
+        if name.startswith(('d_', 'h_')):
             args[5] = None
-        agr, out = lm_case(args, kw)
+        agr, out = lm_case(args, kw, name=name)
         if name == 'c_edges_N1000':
             check(bool(out.invalid[0]), 'row with < 3 valid points not invalid')
             check(torch.equal(out.pose7[0], args[0][0]),
@@ -384,164 +568,365 @@ def phase_lm(device) -> dict:
 
 
 def phase_lm_main_inputs(captured) -> dict:
-    """The LM kernel on the main path's own inputs, kept from one profiled
-    batch of phase 4: the final weighted refine and the first LO polish."""
-    report = {}
+    """The LM kernel on the paths' own inputs (path_lm_inputs, every draw),
+    each call held with the referee (lm_case's `refer`), the first draw's
+    timed. Over all problems float32 does not determine, the kernel may be
+    the farthest from the referee in at most max(2, a quarter) of them:
+    about a tenth is chance (referee), a kernel computing another function
+    would be the farthest in most."""
+    report, undetermined = {}, []
+    first = f'_s{LM_SWEEP_SEEDS[0]}_'
     for name, (args, kw) in captured.items():
         kw = dict(kw)
         args = list(args) + [kw.pop('valid', None)]
-        report[name] = lm_case(args, kw, reorder_witness=True)[0]
+        report[name] = lm_case(args, kw, name=name, refer=True,
+                               timed=first in name)[0]
+        undetermined += [r for r in report[name]['referred']
+                         if not r['determined']]
         log(f'[lm] {name}: {json.dumps(report[name])}')
+    n_far = sum(r['farthest'] for r in undetermined)
+    report['undetermined'] = dict(problems=len(undetermined),
+                                  kernel_farthest=n_far)
+    log(f'[lm] problems float32 does not determine: '
+        f'{json.dumps(report["undetermined"])}')
+    check(n_far <= max(2, len(undetermined) // 4),
+          f'the LM kernel is the farthest from the referee in {n_far} of '
+          f'{len(undetermined)} undetermined problems')
     return report
 
 
-# --------------------------------------------------------------------------
-# phases 3-4: the oracle path and the main path
-# --------------------------------------------------------------------------
-
-def phase_oracle(device) -> dict:
-    import torch
-    from lc_tpu_torch import inference
-    from lc_tpu_torch.data import synthetic
-    from lc_tpu_torch.data.pipeline import collate, device_preprocess
-    from lc_tpu_torch.eval.evaluator import Evaluator
-    from lc_tpu_torch.geom.pose import pose7_to_RT
-    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
-    in_wh, out_wh = GLMO['net_input_wh'], GLMO['net_output_wh']
-    es = synthetic.render_eval_set(4, seed=7, net_input_wh=in_wh,
-                                   net_output_wh=out_wh)
-    batch = collate(es['blobs'])
-    gt = device_preprocess({k: torch.as_tensor(v).to(device)
-                            for k, v in batch.items()},
-                           net_input_wh=in_wh)
-    h, w = out_wh[1], out_wh[0]
-    noc = np.stack([synthetic.oracle_noc(batch['out_K'][i].astype(np.float64),
-                                         R, t, es['half_extents'], (h, w))
-                    for i, (R, t) in enumerate(es['poses'])])
-    B = len(noc)
-    out = {'xyz_noc': torch.tensor(noc),
-           'xyz_weight_logits': torch.zeros(B, h, w, 2),       # constant
-           'xyz_weights_scale': torch.full((B, 1, 1, 1), float(h * w)),
-           'msk_vis_logits': torch.full((B, h, w, 1), 8.0)}
-    before = lm_refine_cuda.launches
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    pose = inference.solve_pnp_dense(out, gt, gen, quantile=GLMO['quantile'],
-                                     device=device)['weighted']
-    launches = lm_refine_cuda.launches - before
-    R, t = pose7_to_RT(pose)
-    ev = Evaluator(es['gts'], es['models'], es['models_info'], device=device)
-    _, errors = ev.evaluate([dict(scene_id=1, im_id=i, obj_id=1,
-                                  R_est=R[i].cpu().numpy(),
-                                  t_est=t[i].cpu().numpy()) for i in range(B)])
-    diameter = es['models_info'][1]['diameter']
-    rep = dict(lm_launches=launches, max_add_mm=max(e['add'] for e in errors),
-               diameter_mm=diameter)
-    log(f'[oracle] {json.dumps(rep)}')
-    check(launches == 3, f'oracle solve launched the LM kernel {launches} times')
-    check(rep['max_add_mm'] < 0.01 * diameter, f'oracle poses off: {rep}')
-    return rep
+def held_summary(lm) -> dict:
+    """phase_lm_main_inputs's report by source (a path or its oracle), over
+    its calls: problems, those within TOL of the f32 plain version, those
+    referred: determined (agreeing with the referee or on its path), on the
+    referee's path, not determined, and of those the kernel the farthest;
+    the largest translation error within TOL; the timed calls' numbers."""
+    out = {}
+    for name, rep in lm.items():
+        if '_s' not in name or 'referred' not in rep:
+            continue
+        src, call = name.rsplit('_s', 1)
+        o = out.setdefault(src, dict(calls=0, problems=0, within_tol=0,
+                                     referred_determined=0,
+                                     on_referee_path=0,
+                                     referred_undetermined=0,
+                                     kernel_farthest=0,
+                                     max_translation_err=0.0, timed={}))
+        rows = rep['referred']
+        o['calls'] += 1
+        o['problems'] += rep['shape']['B']
+        o['within_tol'] += rep['shape']['B'] - len(rows)
+        o['referred_determined'] += sum(r['determined'] for r in rows)
+        o['on_referee_path'] += sum(r['on_referee_path_at'] is not None
+                                    for r in rows)
+        o['referred_undetermined'] += sum(not r['determined'] for r in rows)
+        o['kernel_farthest'] += sum(r['farthest'] for r in rows
+                                    if not r['determined'])
+        o['max_translation_err'] = max(o['max_translation_err'],
+                                       rep['max_translation_err'])
+        if 'ms' in rep:
+            o['timed'][call] = {k: rep[k] for k in (
+                'N', 'valid_points_per_problem', 'n_iter_mean', 'n_iter_max',
+                'ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by')
+                if k in rep} | dict(N=rep['shape']['N'])
+    return out
 
 
-def phase_main(device) -> dict:
-    import torch
-    from lc_tpu_torch import harness
-    from lc_tpu_torch.data import synthetic
-    from lc_tpu_torch.data.pipeline import collate
-    from lc_tpu_torch.eval.evaluator import Evaluator
+def path_bit_cnt(path) -> tuple | None:
+    """The Gray-code bits of each axis of the synthetic box under the path's
+    max_bit_cnt (BOPDataset's rule), None for a continuous or sparse head."""
+    from lc_tpu_torch.codec import calc_bit_count
+    if not path.get('max_bit_cnt'):
+        return None
+    return tuple(calc_bit_count(list(BOX_HALF_EXTENTS),
+                                max_bits=path['max_bit_cnt']))
+
+
+def path_model(path, seed: int = 0):
+    """The path's network with seeded random weights, carried in through
+    state_dict_from_flax as a checkpoint would be."""
     from lc_tpu_torch.models import build_model
     from lc_tpu_torch.models.weights import (random_flax_variables,
                                              state_dict_from_flax)
+    bit_cnt = path_bit_cnt(path)
+    head = dict(sparse_cnt=path.get('sparse_cnt', 0),
+                total_bit_cnt=sum(bit_cnt) if bit_cnt else 0)
+    zebra = path['net_name'] == 'zebra_DeepLabV3'
+    model = build_model(path['net_name'], {'concat': zebra}, **head)
+    model.load_state_dict(state_dict_from_flax(
+        random_flax_variables(seed=seed, net_name=path['net_name'], **head),
+        net_name=path['net_name'], sparse_cnt=head['sparse_cnt']))
+    return model
+
+
+def path_cfg(path):
+    """The config keys harness.run_test reads, as the path's yaml sets them."""
     from lc_tpu_torch.utils.config import Config
-    bs = GLMO['batch_size']
+    return Config(dict(
+        black_background=path.get('black_background', False),
+        sparse_cnt=path.get('sparse_cnt', 0),
+        pnp_solver=dict(dense_sample=path.get('dense_sample', 2),
+                        dense_point_select=path.get('point_select', 'quantile'),
+                        quantile=path.get('quantile', 0.3),
+                        rel_reproj_err=path.get('rel_reproj_err', False),
+                        solvers=list(path['solvers']))))
+
+
+def final_solver(path) -> str:
+    """The result key of the path's last solver."""
+    return path['solvers'][-1].replace('_', '-')
+
+
+def h2d(batch, device) -> dict:
+    import torch
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def rel_threshold(path, batch, device):
+    """rel_reproj_err: 2 px at full-image scale, per crop (run_test's)."""
+    import torch
+    if not path.get('rel_reproj_err'):
+        return None
+    return torch.as_tensor(2.0 / np.asarray(batch['out_pix_scale']),
+                           dtype=torch.float32, device=device)
+
+
+def path_threshold(path, batch, device):
+    """The RANSAC inlier threshold run_test gives the path: 2 px at
+    full-image scale per crop under rel_reproj_err, else 2 px (sparse) or
+    3 px (dense)."""
+    thr = rel_threshold(path, batch, device)
+    if thr is None:
+        thr = 2.0 if path.get('sparse_cnt', 0) > 3 else 3.0
+    return thr
+
+
+def path_points(path, net_out, gt):
+    """The path's correspondences from network outputs, as the solve of
+    harness.run_test forms them: pts3d, pts2d, weights (inverse variances)
+    and the valid mask (None: every keypoint)."""
+    from lc_tpu_torch.inference import dense_grid_outputs, select_points
+    if path.get('sparse_cnt', 0) > 3:
+        return (gt['pts3d'], net_out['pts2d'], 1.0 / net_out['pts2d_std'] ** 2,
+                None)
+    d = dense_grid_outputs(net_out, gt, bit_cnt=path_bit_cnt(path),
+                           black_background=path.get('black_background',
+                                                     False),
+                           sample=path['dense_sample'])
+    valid = select_points(d['inv_std2d'], d['seg_prob'], path['point_select'],
+                          path['quantile'])
+    return d['pts3d'], d['pts2d'], d['inv_std2d'] ** 2, valid
+
+
+def path_lm_inputs(tag, path, net_out, gt, thr) -> dict:
+    """The LM kernel's inputs as the path produces them, over a seeded sweep
+    of RANSAC draws (LM_SWEEP_SEEDS): for each draw, the two LO polishes and
+    the final refine. {name: (args, kwargs)}."""
+    import torch
+    from lc_tpu_torch.pnp.ransac import ransac_pnp
+    pts3d, pts2d, weights, valid = path_points(path, net_out, gt)
+    filtered = path['solvers'][-1] == 'weighted_filtered'
+    inputs = {}
+    for seed in LM_SWEEP_SEEDS:
+        gen = torch.Generator(device=pts2d.device).manual_seed(seed)
+        with capture_lm_calls() as cap:
+            rr = ransac_pnp(gt['out_K'], pts3d, pts2d, gen, valid=valid,
+                            reproj_threshold=thr)
+        check(len(cap.calls) == 2, f'{tag}: {len(cap.calls)} LO polishes')
+        for i, call in enumerate(cap.calls):
+            inputs[f'{tag}_s{seed}_lo{i + 1}'] = call
+        inputs[f'{tag}_s{seed}_final'] = (
+            (rr.pose7, gt['out_K'], pts3d, pts2d, weights),
+            dict(valid=valid & rr.inliers if filtered else valid))
+    return inputs
+
+
+def visible_share(es, blobs, path) -> float:
+    """The share of the output grid the rendered object covers in `blobs`
+    (the oracle's visibility mask)."""
+    from lc_tpu_torch.data import synthetic
+    vis = synthetic.oracle_outputs(es, blobs, path['net_output_wh'])[
+        'msk_vis_logits']
+    return float((vis > 0).mean())
+
+
+def bias_visibility(model, batch, share, path, device) -> float:
+    """Shift the random dense head's visibility logit by one constant so that
+    `share` of the batch's pixels fall in the mask (a random network's
+    logits put almost none there). Returns the shift."""
+    import torch
+    from lc_tpu_torch.data.pipeline import device_preprocess
+    from lc_tpu_torch.models import default_compute_dtype, set_compute_dtype
+    gt = device_preprocess(h2d(batch, device),
+                           net_input_wh=path['net_input_wh'])
+    # the forward harness.run_test runs
+    model = set_compute_dtype(model.to(device).eval(),
+                              default_compute_dtype(device))
+    with torch.no_grad():
+        logits = model(gt['img_in'])['msk_vis_logits'].float().flatten()
+        shift = -float(torch.quantile(logits, 1.0 - share))
+        model.net.aspp.conv_1x1_4.bias[
+            model.channel_slices['msk_vis']] += shift
+    return shift
+
+
+def phase_path(tag, path, device, seed: int) -> tuple:
+    """A main path: harness.run_test on N_BATCHES in-memory batches at the
+    path's widths, with seeded random weights, the kernel counts zeroed just
+    before and read just after; then its stage breakdown on one more run of
+    the last batch. The zebra head's visibility logit is first shifted so
+    that its mask keeps the object's share of the grid. Returns the report,
+    the path's own LM inputs on the last batch (path_lm_inputs), the last
+    batch and the model."""
+    import torch
+    from lc_tpu_torch import harness
+    from lc_tpu_torch.data import synthetic
+    from lc_tpu_torch.data.pipeline import collate, device_preprocess
+    from lc_tpu_torch.eval.evaluator import Evaluator
+    bs = path['batch_size']
     t0 = time.perf_counter()
-    es = synthetic.render_eval_set(bs * N_BATCHES, seed=11,
-                                   net_input_wh=GLMO['net_input_wh'],
-                                   net_output_wh=GLMO['net_output_wh'])
+    es = synthetic.render_eval_set(
+        bs * N_BATCHES, seed=seed, net_input_wh=path['net_input_wh'],
+        net_output_wh=path['net_output_wh'],
+        symmetric=path['net_name'] == 'zebra_DeepLabV3',
+        sparse_cnt=path.get('sparse_cnt', 0))
     batches = [collate(es['blobs'][i * bs:(i + 1) * bs])
                for i in range(N_BATCHES)]
-    log(f'[main] rendered {bs * N_BATCHES} frames in '
+    log(f'[{tag}] rendered {bs * N_BATCHES} frames in '
         f'{time.perf_counter() - t0:.1f} s')
-    cfg = Config(dict(pnp_solver=dict(
-        dense_point_select='quantile', quantile=GLMO['quantile'],
-        solvers=['weighted'])))
-    model = build_model('cdpn_resnet', {'concat': False})
-    model.load_state_dict(state_dict_from_flax(random_flax_variables(seed=0)))
-    dataset = type('EvalSet', (), dict(net_input_wh=GLMO['net_input_wh'],
-                                       bit_cnt=None))
-    ev = Evaluator(es['gts'], es['models'], es['models_info'], device=device)
+    model = path_model(path)
+    rep = {}
+    if path['net_name'] == 'zebra_DeepLabV3':
+        share = visible_share(es, es['blobs'][:bs], path)
+        rep['visibility_logit_shift'] = bias_visibility(
+            model, batches[0], share, path, device)
+        rep['object_share_of_grid'] = share
+    dataset = type('EvalSet', (), dict(net_input_wh=path['net_input_wh'],
+                                       bit_cnt=path_bit_cnt(path)))
+    ev = Evaluator(es['gts'], es['models'], es['models_info'],
+                   symmetric_obj_ids=es['symmetric_obj_ids'], device=device)
 
     zero_kernel_counts()
     t0 = time.perf_counter()
-    res = harness.run_test(cfg, model, batches, dataset, ev, device=device)
+    res = harness.run_test(path_cfg(path), model, batches, dataset, ev,
+                           device=device)
     wall = time.perf_counter() - t0
     counts = kernel_counts()
     launches = counts['lm_refine']
 
-    errors = res['weighted']['errors']
-    check(len(errors) == bs * N_BATCHES, 'not every crop got a pose')
+    final = final_solver(path)
+    check(set(res) == {p.replace('_', '-') for p in path['solvers']},
+          f'{tag}: solvers {sorted(res)}')
+    errors = res[final]['errors']
+    check(len(errors) == bs * N_BATCHES, f'{tag}: not every crop got a pose')
     check(all(np.all(np.isfinite(e['R_est'])) and np.all(np.isfinite(e['t_est']))
-              for e in errors), 'non-finite poses')
+              for e in errors), f'{tag}: non-finite poses')
     check(launches == 3 * N_BATCHES,
-          f'LM kernel launched {launches} times for {N_BATCHES} batches')
+          f'{tag}: LM kernel launched {launches} times for {N_BATCHES} batches')
     per_crop_s = errors[0]['time']     # steady state: batches after the first
-    rep = dict(batches=N_BATCHES, batch_size=bs, lm_launches=launches,
-               launches=counts,
-               crops_per_s=1.0 / per_crop_s, wall_s=wall,
-               add_s_0_10=res['weighted']['avg_score'])
-    log(f'[main] {json.dumps(rep)}')
-    rep['stages'], lm_inputs = stage_breakdown(model, batches[-1], device)
-    log(f'[main] stages of one batch: {json.dumps(rep["stages"])}')
-    return rep, lm_inputs
+    rep.update(batches=N_BATCHES, batch_size=bs, lm_launches=launches,
+               launches=counts, crops_per_s=1.0 / per_crop_s, wall_s=wall,
+               add_s_0_10=res[final]['avg_score'])
+    log(f'[{tag}] {json.dumps(rep)}')
+    rep['stages'] = stage_breakdown(model, batches[-1], device, path)
+    log(f'[{tag}] stages of one batch: {json.dumps(rep["stages"])}')
+    gt = device_preprocess(h2d(batches[-1], device),
+                           net_input_wh=path['net_input_wh'])
+    with torch.no_grad():
+        net_out = model(gt['img_in'])
+    lm_inputs = path_lm_inputs(tag, path, net_out, gt,
+                               path_threshold(path, batches[-1], device))
+    return rep, lm_inputs, batches[-1], model
 
 
-def stage_breakdown(model, batch, device) -> tuple[dict, dict]:
-    """One more batch of the main path, stage by stage (the calls
-    harness.run_test and inference.solve_pnp_dense make): host clock around
-    each stage with the device synchronized, in ms. Then the same batch under
-    torch.profiler: device-busy time (sum of kernel times; one stream, so
-    kernels do not overlap), kernel count, and the busy share of the wall.
-    Also returns the main path's own LM inputs: the arguments of the batch's
-    final refine and of its first LO polish."""
+def phase_main(device) -> tuple[dict, dict]:
+    """glmo's main path (CDPN-ResNet34, continuous NOC)."""
+    return phase_path('main', GLMO, device, seed=11)[:2]
+
+
+class capture_lm_calls:
+    """Records the arguments of every solver.lm_refine_auto call inside the
+    block (RANSAC's LO polishes and the final refines of inference.py) in
+    `calls`, in order."""
+
+    def __enter__(self):
+        from lc_tpu_torch import inference
+        from lc_tpu_torch.pnp import solver
+        self.calls = []
+        self.orig = orig = solver.lm_refine_auto
+
+        def record(*a, **kw):
+            self.calls.append((a, kw))
+            return orig(*a, **kw)
+        solver.lm_refine_auto = inference.lm_refine_auto = record
+        return self
+
+    def __exit__(self, *exc):
+        from lc_tpu_torch import inference
+        from lc_tpu_torch.pnp import solver
+        solver.lm_refine_auto = inference.lm_refine_auto = self.orig
+
+
+def stage_breakdown(model, batch, device, path, out=None) -> dict:
+    """One more batch of a main path, stage by stage (the calls
+    harness.run_test and inference.solve_pnp_dense / solve_pnp_sparse make):
+    host clock around each stage with the device synchronized, in ms, the
+    device memory RANSAC's stages allocate at their peak, and the points
+    RANSAC and the final refine take per problem (mean and least). Then the
+    same batch under torch.profiler: device-busy time (sum of kernel times;
+    one stream, so kernels do not overlap), kernel count, and the busy share
+    of the wall. Given `out` (network outputs on the device, an oracle's),
+    the network is not run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from lc_tpu_torch.data.pipeline import device_preprocess
-    from lc_tpu_torch.inference import dense_grid_outputs, quantile_mask_bisect
-    from lc_tpu_torch.pnp import solver
     from lc_tpu_torch.pnp.ransac import ransac_pnp
     from lc_tpu_torch.pnp.solver import lm_refine_auto
     gen = torch.Generator(device=device)
-    lm_inputs = {}
-
-    def first_polish(*a, **kw):
-        # ransac_pnp's LO polish, which calls solver.lm_refine_auto
-        lm_inputs.setdefault('main_lo_polish', (a, kw))
-        return lm_refine_auto(*a, **kw)
+    filtered = path['solvers'][-1] == 'weighted_filtered'
+    thr = path_threshold(path, batch, device)
 
     def one_batch(timed):
-        dev = timed('h2d', lambda: {k: torch.as_tensor(v).to(device)
-                                    for k, v in batch.items()})
+        dev = timed('h2d', lambda: h2d(batch, device))
         gt = timed('preprocess', lambda: device_preprocess(
-            dev, net_input_wh=GLMO['net_input_wh']))
-        with torch.no_grad():
-            out = timed('cnn', lambda: model(gt['img_in']))
-        d = timed('decode_select', lambda: dense_grid_outputs(out, gt))
-        valid = timed('decode_select', lambda: quantile_mask_bisect(
-            d['inv_std2d'], GLMO['quantile']))
-        args = (gt['out_K'], d['pts3d'], d['pts2d'], gen)
-        timed('ransac_hypotheses', lambda: ransac_pnp(*args, valid=valid,
-                                                      local_opt=False))
-        solver.lm_refine_auto = first_polish
-        try:
-            rr = timed('ransac_full', lambda: ransac_pnp(*args, valid=valid))
-        finally:
-            solver.lm_refine_auto = lm_refine_auto
-        final = lm_inputs['main_final_refine'] = (
-            (rr.pose7, gt['out_K'], d['pts3d'], d['pts2d'],
-             d['inv_std2d'] ** 2), dict(valid=valid))
-        timed('lm_final', lambda: lm_refine_auto(*final[0], **final[1]))
+            dev, net_input_wh=path['net_input_wh']))
+        if model is None:
+            net_out = out
+        else:
+            with torch.no_grad():
+                net_out = timed('cnn', lambda: model(gt['img_in']))
+        pts3d, pts2d, weights, valid = timed(
+            'decode_select', lambda: path_points(path, net_out, gt))
+        args = (gt['out_K'], pts3d, pts2d, gen)
+        kw = dict(valid=valid, reproj_threshold=thr)
+        ransac_call.setdefault('args', (args, kw))
+        timed('ransac_hypotheses', lambda: peak(
+            'ransac_hypotheses', lambda: ransac_pnp(*args, local_opt=False,
+                                                    **kw)))
+        rr = timed('ransac_full', lambda: peak(
+            'ransac_full', lambda: ransac_pnp(*args, **kw)))
+        final_valid = valid & rr.inliers if filtered else valid
+        n = pts3d.shape[1]
+        for name, v in (('ransac', valid), ('lm_final', final_valid)):
+            per = (torch.full((n,), n) if v is None else v.sum(-1)).float()
+            stages[f'{name}_valid_points'] = float(per.mean())
+            stages[f'{name}_valid_points_least'] = float(per.min())
+        timed('lm_final', lambda: lm_refine_auto(
+            rr.pose7, gt['out_K'], pts3d, pts2d, weights, valid=final_valid))
 
     stages: dict[str, float] = {}
+    ransac_call = {}
+
+    def peak(name, fn):
+        """fn(), recording the device memory it allocated at its peak beyond
+        what was allocated before it (the first run's)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        r = fn()
+        stages.setdefault(f'{name}_peak_mib', (
+            torch.cuda.max_memory_allocated(device) - base) / 2 ** 20)
+        return r
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -553,6 +938,11 @@ def stage_breakdown(model, batch, device) -> tuple[dict, dict]:
 
     one_batch(timed)
     stages['ransac_local_opt'] = stages['ransac_full'] - stages['ransac_hypotheses']
+    check(stages['ransac_valid_points'] > 0,
+          f'{path["net_name"]}: RANSAC took no point')
+    args, kw = ransac_call['args']
+    stages['ransac_largest_allocations'] = largest_allocations(
+        lambda: ransac_pnp(*args, **kw))
 
     def untimed(name, fn):
         return fn()
@@ -573,7 +963,135 @@ def stage_breakdown(model, batch, device) -> tuple[dict, dict]:
     stages['top_kernels_ms'] = {
         e.key[:60]: e.self_device_time_total / 1e3
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]}
-    return stages, lm_inputs
+    return stages
+
+
+def largest_allocations(fn, k: int = 4) -> list:
+    """The k largest device allocations fn makes, in MiB, each with the
+    innermost lc_tpu_torch frame that made it (the allocator's history,
+    recorded for this call only)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=100000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    allocs = []
+    for trace in snap['device_traces']:
+        for e in trace:
+            if e['action'] != 'alloc':
+                continue
+            frames = [f for f in e.get('frames', [])
+                      if 'lc_tpu_torch' in f['filename']]
+            site = '?' if not frames else (
+                f"{frames[0]['filename'].split('lc_tpu_torch/')[-1]}:"
+                f"{frames[0]['line']}:{frames[0]['name']}")
+            allocs.append([e['size'] / 2 ** 20, site])
+    return sorted(allocs, key=lambda a: -a[0])[:k]
+
+
+def phase_zebra(device) -> tuple[dict, dict]:
+    """zlmo's main path, then the card's bf16 forward against the f32 forward
+    of the same weights: the share of Gray bits (and of pixels with every bit)
+    of equal sign, printed, not gated (the CPU parity tests run f32)."""
+    import torch
+    from lc_tpu_torch.data.pipeline import device_preprocess
+    from lc_tpu_torch.models import set_compute_dtype
+    rep, lm_inputs, batch, model = phase_path('zebra', ZLMO, device, seed=12)
+    gt = device_preprocess(h2d(batch, device),
+                           net_input_wh=ZLMO['net_input_wh'])
+    signs = {}
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            signs[dt] = set_compute_dtype(model, dt)(
+                gt['img_in'])['xyz_noc_bin'] > 0
+    same = signs[torch.bfloat16] == signs[torch.float32]
+    rep['bf16_vs_f32'] = dict(bit_agreement=float(same.float().mean()),
+                              pixel_agreement=float(
+                                  same.all(-1).float().mean()))
+    log(f'[zebra] bf16 against f32 forward: {json.dumps(rep["bf16_vs_f32"])}')
+    return rep, lm_inputs
+
+
+def phase_sparse(device) -> tuple[dict, dict]:
+    """gsplmo's main path."""
+    return phase_path('sparse', GSPLMO, device, seed=13)[:2]
+
+
+def phase_path_oracle(tag, path, device, limit: float) -> tuple[dict, dict]:
+    """A path's oracle, one batch of the path's size: frames rendered in
+    memory and the network outputs a perfect network would give
+    (synthetic.oracle_outputs: the exact NOC map, the exact Gray logits of
+    it, or keypoint heatmaps peaked at the GT projections) through the
+    path's decode, RANSAC and the LM kernel. Every pose must recover within
+    ADD(-S) `limit` x the diameter (ADD-S for the symmetric zebra object),
+    with 3 LM launches. Then the stage breakdown of the same solve, which
+    RANSAC runs on the oracle's points, not on a random network's. Returns
+    the report and the solve's own LM inputs (path_lm_inputs)."""
+    import torch
+    from lc_tpu_torch import inference
+    from lc_tpu_torch.data import synthetic
+    from lc_tpu_torch.data.pipeline import collate, device_preprocess
+    from lc_tpu_torch.eval.evaluator import Evaluator
+    from lc_tpu_torch.geom.pose import pose7_to_RT
+    from lc_tpu_torch.models.ptnet import keypoints_from_logits
+    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
+    sparse = path.get('sparse_cnt', 0) > 3
+    symmetric = path['net_name'] == 'zebra_DeepLabV3'
+    n = path['batch_size']
+    es = synthetic.render_eval_set(
+        n, seed=7, net_input_wh=path['net_input_wh'],
+        net_output_wh=path['net_output_wh'], symmetric=symmetric,
+        sparse_cnt=path.get('sparse_cnt', 0))
+    batch = collate(es['blobs'])
+    gt = device_preprocess(h2d(batch, device),
+                           net_input_wh=path['net_input_wh'])
+    raw = synthetic.oracle_outputs(
+        es, es['blobs'], path['net_output_wh'], bit_cnt=path_bit_cnt(path),
+        black_background=path.get('black_background', False), sparse=sparse)
+    if sparse:
+        pts2d, std = keypoints_from_logits(torch.as_tensor(
+            raw['kpt_logits'], device=device).permute(0, 3, 1, 2))
+        out = {'pts2d': pts2d, 'pts2d_std': std}
+    else:
+        out = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    thr = rel_threshold(path, batch, device)
+    before = lm_refine_cuda.launches
+    if sparse:
+        states = inference.solve_pnp_sparse(
+            out, gt, gen, solvers=path['solvers'], reproj_err=thr,
+            device=device)
+    else:
+        states = inference.solve_pnp_dense(
+            out, gt, gen, bit_cnt=path_bit_cnt(path),
+            black_background=path.get('black_background', False),
+            sample=path['dense_sample'], point_select=path['point_select'],
+            quantile=path['quantile'], solvers=path['solvers'],
+            reproj_err=thr, device=device)
+    launches = lm_refine_cuda.launches - before
+    R, t = pose7_to_RT(states[final_solver(path)])
+    ev = Evaluator(es['gts'], es['models'], es['models_info'],
+                   symmetric_obj_ids=es['symmetric_obj_ids'], device=device)
+    _, errors = ev.evaluate([dict(scene_id=1, im_id=i, obj_id=1,
+                                  R_est=R[i].cpu().numpy(),
+                                  t_est=t[i].cpu().numpy()) for i in range(n)])
+    metric = 'adi' if symmetric else 'add'
+    diameter = es['models_info'][1]['diameter']
+    rep = dict(crops=n, lm_launches=launches, metric=metric,
+               max_err_mm=max(e[metric] for e in errors), diameter_mm=diameter,
+               limit_mm=limit * diameter)
+    log(f'[{tag}_oracle] {json.dumps(rep)}')
+    check(launches == 3, f'{tag} oracle launched the LM kernel {launches} times')
+    check(rep['max_err_mm'] < limit * diameter, f'{tag} oracle poses off: {rep}')
+    rep['stages'] = stage_breakdown(None, batch, device, path, out=out)
+    log(f'[{tag}_oracle] stages of the solve: {json.dumps(rep["stages"])}')
+    return rep, path_lm_inputs(f'{tag}_oracle', path, out, gt,
+                               path_threshold(path, batch, device))
 
 
 def kernel_counts() -> dict:
@@ -1021,6 +1539,76 @@ def phase_cli(device) -> dict:
     return rep
 
 
+def phase_cli_families(device) -> dict:
+    """`python -m lc_tpu_torch.test` as a user runs it on the zebra and the
+    sparse family: configs/zsyn.yaml on a generated synthetic_sym tree and
+    configs/gspsyn.yaml on a generated tree with its FPS pickle (the recipes
+    in those files' headers, at their widths and batch), 3 batches each, a
+    .pth of seeded random weights in the reference layout; counts zeroed
+    before each and read after."""
+    import pickle
+    import tempfile
+    import torch
+    import yaml
+    from lc_tpu_torch import test as test_cli
+    from lc_tpu_torch.data import synthetic
+    from lc_tpu_torch.utils.config import load_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    dev_args = [] if device.type == 'cuda' else ['--device', 'cpu']
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path in (('zsyn', ZLMO), ('gspsyn', GSPLMO)):
+            cfg = load_config(os.path.join(here, 'configs', f'{name}.yaml'))
+            bs = cfg.dataloader.batch_size
+            root = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            list_file = synthetic.generate_dataset(
+                root, n_images=N_BATCHES * bs, split='test_syn', seed=5,
+                symmetric=name == 'zsyn', list_name='test_list.txt')
+            overrides = {'test_dataset.dataset_root': root,
+                         'test_dataset.list_files': [list_file]}
+            if cfg.get('sparse_cnt', 0):
+                overrides['fps'] = os.path.join(root, 'fps.pkl')
+                with open(overrides['fps'], 'wb') as f:
+                    pickle.dump({1: synthetic.box_surface_points(
+                        np.array(BOX_HALF_EXTENTS), 16)}, f)
+            cfg.merge_from_dict(overrides)
+            cfg_path = os.path.join(tmp, f'{name}.yaml')
+            with open(cfg_path, 'w') as f:
+                yaml.safe_dump(cfg.to_dict(), f)
+            # the family's network at this config's head (zsyn: 7/7/6 bits)
+            weight = os.path.join(tmp, f'{name}.pth')
+            torch.save(path_model(dict(path, max_bit_cnt=cfg.get(
+                'max_bit_cnt', 0))).state_dict(), weight)
+            log(f'[cli_{name}] generated {N_BATCHES * bs} frames in '
+                f'{time.perf_counter() - t0:.1f} s')
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            res = test_cli.main(['--weight', weight, '--config', cfg_path,
+                                 '--output', os.path.join(tmp, f'out_{name}'),
+                                 '--obj', '1'] + dev_args)
+            wall = time.perf_counter() - t0
+            counts = kernel_counts()
+            solvers = {p.replace('_', '-') for p in cfg.pnp_solver.solvers}
+            check(set(res) == solvers, f'{name} test CLI: solvers {set(res)}')
+            for solver in solvers:
+                check(len(res[solver]['errors']) == N_BATCHES * bs,
+                      f'{name} test CLI: not {N_BATCHES * bs} poses')
+                check(os.path.exists(os.path.join(
+                    tmp, f'out_{name}',
+                    f'{name}-{solver}_{cfg.train_dataset.name}_test_1.csv')),
+                    f'{name} test CLI: no CSV for {solver}')
+            check(counts['lm_refine'] == 3 * N_BATCHES,
+                  f'{name} test CLI: LM kernel launched '
+                  f'{counts["lm_refine"]} times in {N_BATCHES} batches')
+            rep[name] = dict(wall_s=wall, crops=N_BATCHES * bs,
+                             launches=counts, solvers=sorted(solvers),
+                             add_s_0_10={k: v['avg_score']
+                                         for k, v in res.items()})
+            log(f'[cli_{name}] {json.dumps(rep[name])}')
+    return rep
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1042,15 +1630,25 @@ def main() -> int:
     lm = phase_lm(device)
     log(f'[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    phase_oracle(device)
-    log(f'[phase] oracle: {time.perf_counter() - t0:.1f} s')
+    # the LM kernel's own inputs, as each path produces them: its oracle's
+    # solve and its main path's (random weights) last batch, over
+    # LM_SWEEP_SEEDS RANSAC draws each
+    lm_inputs = {}
+    for tag, path, limit in (('glmo', GLMO, 0.01), ('zebra', ZLMO, 0.1),
+                             ('sparse', GSPLMO, 0.1)):
+        lm_inputs.update(phase_path_oracle(tag, path, device, limit)[1])
+    log(f'[phase] oracles: {time.perf_counter() - t0:.1f} s')
+    paths = {}
+    for tag, fn in (('main', phase_main), ('zebra', phase_zebra),
+                    ('sparse', phase_sparse)):
+        t0 = time.perf_counter()
+        paths[tag], inputs = fn(device)
+        lm_inputs.update(inputs)
+        log(f'[phase] {tag} path: {time.perf_counter() - t0:.1f} s')
+        log(f'[{tag}] {paths[tag]["crops_per_s"]:.1f} crops/s on {card}')
     t0 = time.perf_counter()
-    main_rep, lm_inputs = phase_main(device)
-    log(f'[phase] main path: {time.perf_counter() - t0:.1f} s')
-    log(f'[main] {main_rep["crops_per_s"]:.1f} crops/s on {card}')
-    t0 = time.perf_counter()
-    lm.update(phase_lm_main_inputs(lm_inputs))
-    log(f'[phase] LM kernel on the main path\'s inputs: '
+    held = phase_lm_main_inputs(lm_inputs)
+    log(f'[phase] LM kernel on the paths\' own inputs: '
         f'{time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
     shear = phase_shear(device)
@@ -1062,17 +1660,23 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cli(device)
     log(f'[phase] train and test CLIs: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    phase_cli_families(device)
+    log(f'[phase] test CLI on the zebra and sparse families: '
+        f'{time.perf_counter() - t0:.1f} s')
 
     a = lm['a_final_refine']
+    launches = {tag: rep['lm_launches'] for tag, rep in paths.items()}
     kernels = [dict(
         name='lm_refine', route='cuda', source='lc_tpu_torch/csrc/lm_refine.cu',
         replaces='lc_tpu/pnp/pallas_lm.py:32',
-        launches=main_rep['lm_launches'],
-        max_abs_err=max(c['max_abs_err'] for c in lm.values()
+        launches=sum(launches.values()), launches_by_path=launches,
+        max_abs_err=max(c['max_abs_err'] for c in (*lm.values(),
+                                                    *held.values())
                         if isinstance(c, dict) and 'max_abs_err' in c),
         ms=a['ms'], plain_ms=a['plain_ms'], bound_ms=a['bound_ms'],
         bound_by=a['bound_by'], library_ms=None,
-        tolerance=TOL, cases=lm)]
+        tolerance=TOL, cases=lm, paths_own_inputs=held_summary(held))]
     x = shear['C3_x']
     kernels.append(dict(
         name='shear_x', route='cuda', source='lc_tpu_torch/csrc/shear_x.cu',

@@ -27,6 +27,7 @@ from . import bop
 from .augment import color_augment, switch_background
 from .crop import batched_separable_warp
 from .model_info import load_composed_model_info
+from ..codec import calc_bit_count
 from ..geom.affine import affine33, crop_affine
 from ..geom.symmetry import (DATASET_SYMMETRIC_OBJ_IDS, pad_candidates,
                              symmetry_pose_candidates)
@@ -126,12 +127,6 @@ class BOPDataset:
     train) pair."""
 
     def __init__(self, cfg_dataset, cfg_global, train: bool = True):
-        if cfg_global.get('max_bit_cnt', 0) > 0:
-            raise NotImplementedError(
-                'binary (zebra) targets arrive with the zebra slice')
-        if cfg_global.get('sparse_cnt', 0) > 0:
-            raise NotImplementedError(
-                'sparse keypoints arrive with the sparse slice')
         import cv2
         self._cv2 = cv2
         cv2.setNumThreads(0)
@@ -164,6 +159,21 @@ class BOPDataset:
             transform_model=cfg_global.get('transform_model', False),
             xform_path=cfg_global.get('transform_path'))
         self.bit_cnt = None
+        max_bit_cnt = cfg_global.get('max_bit_cnt', 0)
+        if max_bit_cnt > 0:
+            oid = annots[0][1]['obj_id']
+            if any(a[1]['obj_id'] != oid for a in annots):
+                raise ValueError('binary mode only allowed in single object '
+                                 'mode')
+            self.bit_cnt = tuple(calc_bit_count(
+                self.model_info[oid]['noc_scale_xfd'].tolist(),
+                max_bits=max_bit_cnt))
+        # model keypoints of the sparse head, from the FPS pickle
+        self.sparse_cnt = cfg_global.get('sparse_cnt', 0)
+        self.fps = None
+        if self.sparse_cnt > 0:
+            with open(cfg_global.fps, 'rb') as f:
+                self.fps = pickle.load(f)
 
         self.sym_obj_ids = []
         if cfg_global.get('sym_aware', cfg_dataset.get('sym_aware', False)):
@@ -242,13 +252,13 @@ class BOPDataset:
             bbox = inst_info.get('bbox_det')
             if bbox is None:
                 bbox = inst_info['bbox_visib']
-            return eval_blob(
+            return self._object_keys(eval_blob(
                 rgb, im_info['cam_K'], bbox, self.model_info[obj_id],
                 obj_id=obj_id, im_id=im_info['im_id'],
                 scene_id=im_info['scene_id'], net_input_wh=self.net_input_wh,
                 net_output_wh=self.net_output_wh,
                 dzi_pad_scale=cfg.dzi_pad_scale,
-                det_score=inst_info.get('det_score', 1.0))
+                det_score=inst_info.get('det_score', 1.0)), obj_id)
 
         H, W = rgb.shape[:2]
         cam_K = im_info['cam_K']
@@ -304,8 +314,7 @@ class BOPDataset:
             'im_id': np.int32(im_info['im_id']),
             'scene_id': np.int32(im_info['scene_id']),
         })
-        if self.transform_model:
-            blob['model_transform'] = m_info['xform'].astype(np.float32)
+        self._object_keys(blob, obj_id)
 
         msk_noc_small = cv2.warpAffine(msk_visib, out_aff, out_wh,
                                        flags=cv2.INTER_NEAREST) > 0.5
@@ -338,6 +347,17 @@ class BOPDataset:
             'diameter': np.float32(m_info['diameter']),
             'pixel_aug': np.bool_(rng.random() < cfg.get('pixel_aug_prob', 0)),
         })
+        return blob
+
+    def _object_keys(self, blob: dict, obj_id: int) -> dict:
+        """The object's keypoints (sparse head) and canonical-frame
+        transform (transform_model), added to `blob`."""
+        if self.sparse_cnt > 0:
+            blob['pts3d'] = np.asarray(self.fps[obj_id][:self.sparse_cnt],
+                                       np.float32)
+        if self.transform_model:
+            blob['model_transform'] = \
+                self.model_info[obj_id]['xform'].astype(np.float32)
         return blob
 
     def _random_bg_crop(self, rng, in_wh):

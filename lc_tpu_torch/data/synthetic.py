@@ -215,12 +215,13 @@ def generate_dataset(root: str, *, n_images: int = 24, obj_id: int = 1,
     return list_path
 
 
-def oracle_noc(K: np.ndarray, R: np.ndarray, t: np.ndarray,
-               half_extents: np.ndarray, hw) -> np.ndarray:
+def oracle_grid(K: np.ndarray, R: np.ndarray, t: np.ndarray,
+                half_extents: np.ndarray, hw) -> tuple[np.ndarray, np.ndarray]:
     """The exact NOC map (h, w, 3) a perfect network would predict on the grid
-    uv[y, x] = (x, y) of camera K: the box surface point where the pixel's ray
-    hits it, else the ray's point at the depth of the object center. Every
-    entry projects exactly onto its pixel under (R, t)."""
+    uv[y, x] = (x, y) of camera K, and the object mask (h, w) on that grid:
+    the box surface point where the pixel's ray hits it, else the ray's point
+    at the depth of the object center. Every entry projects exactly onto its
+    pixel under (R, t)."""
     h, w = hw
     us, vs = np.meshgrid(np.arange(w, dtype=np.float64),
                          np.arange(h, dtype=np.float64))
@@ -228,25 +229,38 @@ def oracle_noc(K: np.ndarray, R: np.ndarray, t: np.ndarray,
     s_bg = t[2] / d_cam[:, 2]
     x_bg = (-R.T @ t).reshape(3) + s_bg[:, None] * (d_cam @ R)
     x_m = np.where(hit[:, None], x_m, x_bg)
-    return (x_m / half_extents).reshape(h, w, 3).astype(np.float32)
+    return ((x_m / half_extents).reshape(h, w, 3).astype(np.float32),
+            hit.reshape(h, w))
 
 
 def render_eval_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
                     half_extents=(40.0, 30.0, 20.0), im_hw=(480, 640),
                     net_input_wh=(256, 256), net_output_wh=(64, 64),
-                    dzi_pad_scale: float = 1.5) -> dict:
+                    dzi_pad_scale: float = 1.5, symmetric: bool = False,
+                    sparse_cnt: int = 0) -> dict:
     """An eval set held in memory: one box per rendered frame, with the eval
     host blobs (the keys of data/pipeline.py::eval_blob), the GT records,
     model points and models_info an Evaluator needs, and the poses.
+    symmetric: the object carries generate_dataset's discrete symmetry (180°
+    about z) and is scored by ADD-S (`symmetric_obj_ids`); sparse_cnt > 0:
+    the blobs carry the first sparse_cnt keypoints of
+    box_surface_points(half_extents, 16) as pts3d, the keypoint pickle the
+    sparse configs' recipe writes.
 
-    Returns dict(blobs, gts, models, models_info, poses, half_extents)."""
+    Returns dict(blobs, gts, models, models_info, poses, half_extents,
+    symmetric_obj_ids, keypoints)."""
     from .pipeline import eval_blob
     rng = np.random.default_rng(seed)
     he = np.asarray(half_extents, np.float32)
     H, W = im_hw
     info = {'min_x': -float(he[0]), 'min_y': -float(he[1]),
             'min_z': -float(he[2]), 'diameter': float(2.0 * np.linalg.norm(he))}
+    if symmetric:
+        m = np.eye(4)
+        m[:3, :3] = sciR.from_rotvec([0, 0, np.pi]).as_matrix()
+        info['symmetries_discrete'] = [m.reshape(-1).tolist()]
     m_info = {'noc_scale_xfd': np.abs(he), 'noc_scale_ori': np.abs(he)}
+    keypoints = box_surface_points(he, 16)[:sparse_cnt] if sparse_cnt else None
     blobs, gts, poses = [], [], []
     for im_id in range(n_images):
         R = sciR.random(random_state=int(rng.integers(1 << 30))).as_matrix()
@@ -259,10 +273,13 @@ def render_eval_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
         ys, xs = np.nonzero(mask)
         bbox = [xs.min(), ys.min(), xs.max() - xs.min() + 1,
                 ys.max() - ys.min() + 1]
-        blobs.append(eval_blob(
+        blob = eval_blob(
             rgb, K_DEFAULT, bbox, m_info, obj_id=obj_id, im_id=im_id,
             scene_id=1, net_input_wh=net_input_wh, net_output_wh=net_output_wh,
-            dzi_pad_scale=dzi_pad_scale))
+            dzi_pad_scale=dzi_pad_scale)
+        if keypoints is not None:
+            blob['pts3d'] = keypoints.copy()
+        blobs.append(blob)
         gts.append(dict(scene_id=1, im_id=im_id, obj_id=obj_id,
                         R_gt=R.astype(np.float32),
                         t_gt=t.astype(np.float32)[:, None],
@@ -270,7 +287,56 @@ def render_eval_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
         poses.append((R, t))
     return dict(blobs=blobs, gts=gts, poses=poses, half_extents=he,
                 models={obj_id: box_surface_points(he)},
-                models_info={obj_id: info})
+                models_info={obj_id: info},
+                symmetric_obj_ids=[obj_id] if symmetric else [],
+                keypoints=keypoints)
+
+
+def oracle_outputs(es: dict, blobs: list[dict], net_output_wh, *,
+                   bit_cnt=None, black_background: bool = False,
+                   sparse: bool = False, logit: float = 4.0,
+                   kpt_sigma: float = 1.0) -> dict:
+    """Network outputs (numpy, channel-last) a perfect network would give on
+    `blobs` of the eval set `es` (render_eval_set), on their output grid of
+    net_output_wh:
+      * dense heads: 'xyz_noc' (oracle NOC) or, with bit_cnt, 'xyz_noc_bin'
+        (±logit on the Gray bits of the oracle NOC, codec.noc_to_bits);
+        visibility ±8 and weight logits 0 / -30 on / off the object mask, a
+        weight scale of h·w;
+      * sparse head: 'kpt_logits', per keypoint of es['keypoints'] a
+        Gaussian of std kpt_sigma px in logit space around its GT projection.
+    """
+    import torch
+    from ..codec import noc_to_bits
+    K_out = [b['out_K'].astype(np.float64) for b in blobs]
+    poses = [es['poses'][int(b['im_id'])] for b in blobs]
+    he = es['half_extents']
+    w, h = net_output_wh
+    hw = (h, w)
+    if sparse:
+        kp = es['keypoints'].astype(np.float64)
+        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+        out = []
+        for Ko, (R, t) in zip(K_out, poses):
+            uvz = (kp @ R.T + t) @ Ko.T
+            uv = uvz[:, :2] / uvz[:, 2:]
+            d2 = (xs[..., None] - uv[:, 0]) ** 2 \
+                + (ys[..., None] - uv[:, 1]) ** 2
+            out.append(-d2 / (2 * kpt_sigma ** 2))
+        return {'kpt_logits': np.stack(out).astype(np.float32)}
+    grids = [oracle_grid(Ko, R, t, he, hw) for Ko, (R, t) in zip(K_out, poses)]
+    noc = np.stack([g[0] for g in grids])
+    hit = np.stack([g[1] for g in grids])[..., None]
+    B = len(blobs)
+    out = {'xyz_weight_logits': np.where(hit, 0.0, -30.0).repeat(2, -1),
+           'xyz_weights_scale': np.full((B, 1, 1, 1), float(h * w)),
+           'msk_vis_logits': np.where(hit, 8.0, -8.0)}
+    if bit_cnt is None:
+        out['xyz_noc'] = noc
+    else:
+        bits, _ = noc_to_bits(torch.from_numpy(noc), bit_cnt, black_background)
+        out['xyz_noc_bin'] = np.where(bits.numpy(), logit, -logit)
+    return {k: v.astype(np.float32) for k, v in out.items()}
 
 
 def render_train_set(n_images: int, *, seed: int = 0, obj_id: int = 1,

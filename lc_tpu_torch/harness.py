@@ -97,14 +97,16 @@ def run_test(cfg, model, loader, dataset, evaluator,
 
     loader yields host batches (dicts of numpy arrays, the eval blobs of
     data/pipeline.py collated); dataset provides net_input_wh and bit_cnt.
+    The dense heads (continuous NOC or Gray codes) go through
+    inference.solve_pnp_dense, the sparse head (sparse_cnt > 3) through
+    solve_pnp_sparse.
     Runs on `device`: CUDA unless 'cpu' is passed. Returns
     {solver: dict(avg_score, per_obj_score, errors, tables)}."""
     device = resolve_device(device)
-    if cfg.get('sparse_cnt', 0) > 3:
-        raise NotImplementedError('sparse inference arrives with the sparse slice')
     if cfg.get('int8_inference', False):
         raise NotImplementedError('int8 inference is not ported yet')
     solver_cfg = cfg.pnp_solver
+    sparse = cfg.get('sparse_cnt', 0) > 3
     model = set_compute_dtype(model.to(device).eval(),
                               default_compute_dtype(device))
     generator = torch.Generator(device=device)
@@ -126,13 +128,20 @@ def run_test(cfg, model, loader, dataset, evaluator,
             # 2 px at full-image scale
             thr = torch.as_tensor(2.0 / np.asarray(batch['out_pix_scale']),
                                   dtype=torch.float32, device=device)
-        states = inference.solve_pnp_dense(
-            out, gt, generator, bit_cnt=dataset.bit_cnt,
-            sample=solver_cfg.get('dense_sample', 2),
-            point_select=solver_cfg.get('dense_point_select', 'quantile'),
-            quantile=solver_cfg.get('quantile', 0.3),
-            seg_thresh=solver_cfg.get('seg_thresh', 0.5),
-            solvers=tuple(solver_cfg.solvers), reproj_err=thr, device=device)
+        if sparse:
+            states = inference.solve_pnp_sparse(
+                out, gt, generator, solvers=tuple(solver_cfg.solvers),
+                reproj_err=thr, device=device)
+        else:
+            states = inference.solve_pnp_dense(
+                out, gt, generator, bit_cnt=dataset.bit_cnt,
+                black_background=cfg.get('black_background', False),
+                sample=solver_cfg.get('dense_sample', 2),
+                point_select=solver_cfg.get('dense_point_select', 'quantile'),
+                quantile=solver_cfg.get('quantile', 0.3),
+                seg_thresh=solver_cfg.get('seg_thresh', 0.5),
+                solvers=tuple(solver_cfg.solvers), reproj_err=thr,
+                device=device)
         host = {}
         for name, pose7 in states.items():
             R, t = pose7_to_RT(pose7)

@@ -1,5 +1,6 @@
 """Inference-time PnP solving: decode -> point selection -> RANSAC -> weighted
-LM (counterpart of lc_tpu/inference.py, dense path).
+LM (counterpart of lc_tpu/inference.py): the dense path and the sparse
+keypoint path.
 
 Point selection keeps lc_tpu's validity masks over the fixed dense grid, and
 its sort-free quantile: an exact order statistic found by bisection over the
@@ -61,12 +62,13 @@ def quantile_mask_bisect(den_inv_std2d: torch.Tensor, quantile) -> torch.Tensor:
 
 
 def dense_grid_outputs(out: dict, gt: dict, *, bit_cnt=None,
-                       sample: int = 2) -> dict:
-    """Decode the dense head into flat correspondences on the stride-`sample`
-    grid (top-left (0, 0))."""
+                       black_background: bool = False, sample: int = 2) -> dict:
+    """Decode the dense head (NOC or Gray-code logits) into flat
+    correspondences on the stride-`sample` grid (top-left (0, 0))."""
     nn_out = out.get('xyz_noc', out.get('xyz_noc_bin'))
     xyz = nn_out_to_xyz(nn_out, gt['noc_scale'], bit_cnt=bit_cnt,
-                        model_transform=gt.get('model_transform'))
+                        model_transform=gt.get('model_transform'),
+                        black_background=black_background, inference=True)
     wl = out['xyz_weight_logits']                              # (B, h, w, 2)
     B, h, w = wl.shape[:3]
     weights = torch.softmax(wl.reshape(B, -1), -1).reshape(wl.shape) \
@@ -82,8 +84,36 @@ def dense_grid_outputs(out: dict, gt: dict, *, bit_cnt=None,
                 seg_prob=seg[sl].reshape(B, n))
 
 
+def select_points(inv_std2d: torch.Tensor, seg_prob: torch.Tensor,
+                  point_select: str = 'quantile', quantile: float = 0.3,
+                  seg_thresh: float = 0.5) -> torch.Tensor:
+    """The points PnP takes, (B, N) bool: those in the visibility mask
+    ('mask'), those above the weight quantile ('quantile'), or those of the
+    mask above the quantile of the mask's weights ('quantile_in_mask')."""
+    seg_valid = seg_prob > seg_thresh
+    if point_select == 'mask':
+        return seg_valid
+    if point_select == 'quantile':
+        return quantile_mask_bisect(inv_std2d, quantile)
+    if point_select == 'quantile_in_mask':
+        vis_ratio = seg_valid.to(torch.float32).mean(-1)
+        q = 1.0 - (1.0 - quantile) * vis_ratio
+        return quantile_mask_bisect(
+            inv_std2d * seg_valid[..., None].to(inv_std2d.dtype), q) \
+            & seg_valid
+    raise ValueError(point_select)
+
+
+def _on_device(out: dict, gt: dict, device) -> tuple[dict, dict]:
+    device = resolve_device(device)
+    return ({k: v.to(device) for k, v in out.items()},
+            {k: v.to(device) if torch.is_tensor(v) else v
+             for k, v in gt.items()})
+
+
 def solve_pnp_dense(out: dict, gt: dict, generator: torch.Generator | None = None,
-                    *, bit_cnt=None, sample: int = 2,
+                    *, bit_cnt=None, black_background: bool = False,
+                    sample: int = 2,
                     point_select: str = 'quantile', quantile: float = 0.3,
                     seg_thresh: float = 0.5, solvers=('weighted',),
                     reproj_err=None, max_iter: int = 50, device=None,
@@ -94,26 +124,13 @@ def solve_pnp_dense(out: dict, gt: dict, generator: torch.Generator | None = Non
     there. `generator` draws the RANSAC samples; `sample_idx` (B, K, 6)
     replaces that draw with given indices.
     """
-    device = resolve_device(device)
-    out = {k: v.to(device) for k, v in out.items()}
-    gt = {k: v.to(device) if torch.is_tensor(v) else v for k, v in gt.items()}
-    d = dense_grid_outputs(out, gt, bit_cnt=bit_cnt, sample=sample)
+    out, gt = _on_device(out, gt, device)
+    d = dense_grid_outputs(out, gt, bit_cnt=bit_cnt,
+                           black_background=black_background, sample=sample)
     pts2d, pts3d, inv_std = d['pts2d'], d['pts3d'], d['inv_std2d']
     inv_cov2d = inv_std ** 2
-    seg_valid = d['seg_prob'] > seg_thresh
-
-    if point_select == 'mask':
-        valid = seg_valid
-    elif point_select == 'quantile':
-        valid = quantile_mask_bisect(inv_std, quantile)
-    elif point_select == 'quantile_in_mask':
-        vis_ratio = seg_valid.to(torch.float32).mean(-1)
-        q = 1.0 - (1.0 - quantile) * vis_ratio
-        valid = quantile_mask_bisect(
-            inv_std * seg_valid[..., None].to(inv_std.dtype), q) & seg_valid
-    else:
-        raise ValueError(point_select)
-
+    valid = select_points(inv_std, d['seg_prob'], point_select, quantile,
+                          seg_thresh)
     thr = 3.0 if reproj_err is None else reproj_err
     rr = ransac_pnp(gt['out_K'], pts3d, pts2d, generator, valid=valid,
                     reproj_threshold=thr, sample_idx=sample_idx)
@@ -129,4 +146,29 @@ def solve_pnp_dense(out: dict, gt: dict, generator: torch.Generator | None = Non
         results['weighted-filtered'] = lm_refine_auto(
             rr.pose7, gt['out_K'], pts3d, pts2d, inv_cov2d,
             valid=valid & rr.inliers, max_iter=max_iter).pose7
+    return results
+
+
+def solve_pnp_sparse(out: dict, gt: dict,
+                     generator: torch.Generator | None = None, *,
+                     solvers=('ransac', 'weighted'), reproj_err=None,
+                     max_iter: int = 50, device=None,
+                     sample_idx: torch.Tensor | None = None) -> dict:
+    """The sparse keypoint path: out['pts2d'] and out['pts2d_std'] (B, K, 2)
+    against the model keypoints gt['pts3d'] (B, K, 3); every keypoint takes
+    part (no validity mask), weighted by 1/std². Returns {solver_name:
+    pose7 (B, 7)}; `device` and `sample_idx` as in solve_pnp_dense."""
+    out, gt = _on_device(out, gt, device)
+    pts2d = out['pts2d']
+    inv_cov2d = 1.0 / out['pts2d_std'] ** 2
+    thr = 2.0 if reproj_err is None else reproj_err
+    rr = ransac_pnp(gt['out_K'], gt['pts3d'], pts2d, generator,
+                    reproj_threshold=thr, sample_idx=sample_idx)
+    results = {}
+    if 'ransac' in solvers:
+        results['ransac'] = rr.pose7
+    if 'weighted' in solvers:
+        results['weighted'] = lm_refine_auto(
+            rr.pose7, gt['out_K'], gt['pts3d'], pts2d, inv_cov2d,
+            max_iter=max_iter).pose7
     return results

@@ -1,6 +1,6 @@
 """Network output decoding and on-the-fly training targets (counterpart of
-lc_tpu/loss/targets.py; continuous NOC only, the binary Gray codes arrive
-with the zebra slice).
+lc_tpu/loss/targets.py; binary Gray codes are decoded at inference, their
+training targets arrive with the zebra training slice).
 
 Symmetry candidates come padded to a fixed K with a validity mask
 (geom.symmetry.pad_candidates), so the selection is one batched argmin.
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..codec import logits_to_noc
 from ..geom.pose import RT_to_pose7
 from ..geom.projection import xyz_from_homo_z
 from ..geom.symmetry import select_pose_2d, select_pose_3d
@@ -17,22 +18,36 @@ from ..geom.symmetry import select_pose_2d, select_pose_3d
 
 def nn_out_to_xyz(nn_out: torch.Tensor, noc_scale_xfd: torch.Tensor, *,
                   model_transform: torch.Tensor | None = None,
-                  bit_cnt=None) -> torch.Tensor:
+                  bit_cnt=None, black_background: bool = False,
+                  inference: bool = False) -> torch.Tensor:
     """Decode network output channels into model-frame XYZ.
 
-    nn_out: (B, ..., C) channel-last, C = 3 for the continuous NOC head;
-    noc_scale_xfd: (B, 3). Returns (B, ..., 3).
+    nn_out: (B, ..., C) channel-last, C = 3 for the continuous NOC head,
+    sum(bit_cnt) Gray-code logits for the binary one; noc_scale_xfd: (B, 3);
+    model_transform: (B, 4, 4), the model -> canonical-frame transform
+    x_xfd = R x + t, or None. Returns (B, ..., 3).
     """
-    if bit_cnt is not None:
+    def bshape(x):          # (B, 3) -> (B, 1, ..., 1, 3)
+        return x.reshape(x.shape[:1] + (1,) * (nn_out.dim() - 2)
+                         + x.shape[1:])
+
+    if bit_cnt is None:
+        if model_transform is not None:
+            raise ValueError('model transform not supported for continuous '
+                             'xyz output (matches reference)')
+        return nn_out * bshape(noc_scale_xfd)
+    if not inference:
         raise NotImplementedError(
-            'the binary Gray-code decode (zebra models) arrives with the '
-            'zebra slice of the port')
-    if model_transform is not None:
-        raise ValueError('model transform not supported for continuous xyz '
-                         'output (matches reference)')
-    scale = noc_scale_xfd.reshape(
-        noc_scale_xfd.shape[:1] + (1,) * (nn_out.dim() - 2) + (3,))
-    return nn_out * scale
+            'the training decode of Gray codes (logits_to_noc_with_gt) '
+            'arrives with the zebra training slice')
+    xyz_xfd = logits_to_noc(nn_out, bit_cnt, black_background) \
+        * bshape(noc_scale_xfd)
+    if model_transform is None:
+        return xyz_xfd
+    # x = Rᵀ (x_xfd − t), as rows: (x_xfd − t) @ R
+    R = model_transform[:, :3, :3]
+    R = R.reshape(R.shape[:1] + (1,) * (nn_out.dim() - 3) + (3, 3))
+    return (xyz_xfd - bshape(model_transform[:, :3, 3])) @ R
 
 
 def _no_binary(bit_cnt):

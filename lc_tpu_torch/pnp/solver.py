@@ -40,13 +40,15 @@ class LMResult(NamedTuple):
 def prepare_weights(pts2d: torch.Tensor, weights: torch.Tensor,
                     valid: torch.Tensor | None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-coordinate f32 weights (B, N, 2) with masked points zeroed, and the
-    count of valid points per problem (B,) int32."""
+    """Per-coordinate weights (B, N, 2) in pts2d's precision (at least f32)
+    with masked points zeroed, and the count of valid points per problem (B,)
+    int32."""
+    dt = torch.promote_types(pts2d.dtype, torch.float32)
     if weights.dim() == pts2d.dim() - 1:
         weights = weights[..., None]
-    w2 = weights.to(torch.float32).expand(pts2d.shape)
+    w2 = weights.to(dt).expand(pts2d.shape)
     if valid is not None:
-        w2 = w2 * valid[..., None].to(torch.float32)
+        w2 = w2 * valid[..., None].to(dt)
         n_valid = valid.to(torch.int32).sum(-1, dtype=torch.int32)
     else:
         n_valid = torch.full(pts2d.shape[:-2], pts2d.shape[-2],
@@ -78,24 +80,27 @@ def lm_refine(pose7_init: torch.Tensor, cam_K: torch.Tensor,
 
     pose7_init: (B, 7); cam_K: (B, 3, 3); pts3d: (B, N, 3); pts2d: (B, N, 2);
     weights: per-coordinate inverse variances, (B, N, 2) or (B, N); valid:
-    (B, N) bool mask. All f32.
+    (B, N) bool mask. f32 as the kernel takes them; given f64 inputs it
+    runs in f64, the referee chip_smoke.py holds the kernel's disagreements
+    with this f32 version to.
 
     fallback_to_init=True is the Ceres contract: NO_CONVERGENCE returns the
     initial pose flagged invalid. fallback_to_init=False returns the last
     accepted iterate instead, for a budgeted polish that scores the result
     itself; the invalid flag keeps its Ceres meaning either way.
     """
-    pose7_init = pose7_init.to(torch.float32)
     w2, n_valid = prepare_weights(pts2d, weights, valid)
+    dt = w2.dtype
+    pose7_init = pose7_init.to(dt)
     too_few = n_valid < 3
     B = pose7_init.shape[0]
     dev = pose7_init.device
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
 
     pose = pose7_init
     cost = _weighted_cost(pose, cam_K, pts3d, pts2d, w2)
-    radius = torch.full((B,), initial_radius, dtype=torch.float32, device=dev)
-    decrease_factor = torch.full((B,), 2.0, dtype=torch.float32, device=dev)
+    radius = torch.full((B,), initial_radius, dtype=dt, device=dev)
+    decrease_factor = torch.full((B,), 2.0, dtype=dt, device=dev)
     done = too_few.clone()
     n_iter = torch.zeros((B,), dtype=torch.int32, device=dev)
 

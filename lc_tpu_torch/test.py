@@ -81,7 +81,9 @@ def main(argv=None):
 
     evaluator = harness.get_evaluator(cfg, device=device)
     test_set, test_loader = harness.make_datasets(cfg, train=False)
-    model = harness.build_model_from_cfg(cfg)
+    bit_cnt = test_set.bit_cnt
+    model = harness.build_model_from_cfg(
+        cfg, 0 if bit_cnt is None else sum(bit_cnt))
     model.load_state_dict(load_weights(args.weight))
     logger.info('loaded %s', args.weight)
 

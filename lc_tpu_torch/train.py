@@ -43,6 +43,10 @@ def build_training(cfg, seed: int | None = None, device=None) -> dict:
     defaults to cfg.train.seed (42 when unset): one knob drives the loader's
     shuffle, the model's init and the per-step generators."""
     device = resolve_device(device)
+    if cfg.get('max_bit_cnt', 0) > 0 or cfg.get('sparse_cnt', 0) > 3:
+        raise NotImplementedError('training the zebra (max_bit_cnt) and '
+                                  'sparse (sparse_cnt) families is not '
+                                  'ported yet; their inference is')
     if seed is None:
         seed = int(cfg.train.get('seed', 42))
     train_set, train_loader = harness.make_datasets(cfg, train=True, seed=seed)

@@ -71,6 +71,21 @@ def test_matches_xla_solver_and_pallas_kernel(per_coord):
     np.testing.assert_allclose(port.pose7[:, 4:].numpy(), pose[:, 4:], atol=2.5)
 
 
+@pytest.mark.parametrize('valid_frac', [1.0, 0.6])
+def test_float64_inputs_run_in_float64(valid_frac):
+    """The f64 referee: f64 inputs keep f64 through the solve and land
+    within the kernel tolerance of the f32 run on a well-posed problem."""
+    pose, start, Ks, pts3d, uv, w = make_problem()
+    valid = np.random.default_rng(2).random(pts3d.shape[:2]) < valid_frac
+    f32 = _port(start, Ks, pts3d, uv, w, valid)
+    f64 = _port(*(a.astype(np.float64) for a in (start, Ks, pts3d, uv, w)),
+                valid)
+    assert f64.pose7.dtype == f64.cost.dtype == f64.radius.dtype \
+        == torch.float64
+    _agree(f64, f32)
+    assert not f64.invalid.any()
+
+
 def test_valid_mask_and_too_few():
     pose, start, Ks, pts3d, uv, w = make_problem(batch=2, n_pts=32)
     valid = np.ones((2, 32), bool)

@@ -69,7 +69,12 @@ def test_reference_state_dict_round_trip(concat):
 
 
 def test_unported_heads_raise():
-    with pytest.raises(NotImplementedError, match='zebra'):
-        build_model('zebra_DeepLabV3')
-    with pytest.raises(NotImplementedError, match='sparse'):
-        build_model('cdpn_resnet', sparse_cnt=8)
+    """Every head of lc_tpu is ported now (zebra and sparse:
+    tests/test_torch_zebra.py, test_torch_sparse.py); a network lc_tpu does
+    not have raises as there."""
+    with pytest.raises(ValueError, match='unknown net_name'):
+        build_model('resnet50')
+    assert build_model('zebra_DeepLabV3', total_bit_cnt=20) \
+        .channel_slices['xyz_noc_bin'] == slice(0, 20)
+    assert build_model('cdpn_resnet', sparse_cnt=8).channel_slices == \
+        {'kpt_logits': slice(0, 8)}

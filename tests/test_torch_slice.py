@@ -61,17 +61,9 @@ def test_eval_preprocess_matches(eval_set):
     assert np.abs(t['img_in'].numpy() - np.asarray(j['img_in'])).mean() < 0.005
 
 
-def _oracle_out(eval_set, batch):
-    B = len(batch['im_id'])
-    noc = np.stack([synthetic.oracle_noc(batch['out_K'][i].astype(np.float64),
-                                         R, t, eval_set['half_extents'],
-                                         OUT_WH[::-1])
-                    for i, (R, t) in enumerate(eval_set['poses'])])
-    h, w = OUT_WH[::-1]
-    return {'xyz_noc': torch.tensor(noc),
-            'xyz_weight_logits': torch.zeros(B, h, w, 2),
-            'xyz_weights_scale': torch.full((B, 1, 1, 1), float(h * w)),
-            'msk_vis_logits': torch.full((B, h, w, 1), 5.0)}
+def _oracle_out(eval_set):
+    return {k: torch.tensor(v) for k, v in synthetic.oracle_outputs(
+        eval_set, eval_set['blobs'], OUT_WH).items()}
 
 
 def test_oracle_network_output_recovers_poses(eval_set):
@@ -79,7 +71,7 @@ def test_oracle_network_output_recovers_poses(eval_set):
     batch = collate(eval_set['blobs'])
     gt = device_preprocess({k: torch.as_tensor(v) for k, v in batch.items()},
                            net_input_wh=IN_WH)
-    poses = inference.solve_pnp_dense(_oracle_out(eval_set, batch), gt,
+    poses = inference.solve_pnp_dense(_oracle_out(eval_set), gt,
                                       torch.Generator().manual_seed(0),
                                       device='cpu')['weighted']
     R, t = pose7_to_RT(poses)
