@@ -36,10 +36,17 @@ Phases, each of which fails the run on error:
      hold, the column pass on random per-column shifts and sizes off its
      tile, and the composed rotated crop with the kernel against the same
      composition with the plain shear;
-  6. the training path: configs/glmo.yaml with dataloader.device_rotate on
-     and background switching, CDPN-ResNet34 at glmo's widths and batch,
-     six steps of device_preprocess + train_step on in-memory blobs (the
-     first untimed), with the counts zeroed before and read after; then a
+  6. the training paths, each with dataloader.device_rotate on and the LC
+     loss at full weight from step 1, at its config's widths and batch:
+     glmo (CDPN-ResNet34, background switching), zlmo (ZebraDeepLabV3, 20
+     Gray bits under black_background, the binary-code loss and the LC
+     loss on the straight-through decode; rotate_prob 0, so the shear
+     kernel's six launches a step run at angle 0; with the training decode
+     on the card held to the CPU's) and gsplmo (the 16-keypoint head, the
+     keypoint NLL and the sparse LC loss; real rotations); six steps of
+     train.step_inputs + train_step on in-memory blobs (the first
+     untimed), with the counts zeroed before and read after, the loss
+     terms, the clip threshold and the Gray-bit histogram checked; then a
      stage breakdown of one more step and its device-busy share;
   7. the train CLI on the card: `python -m lc_tpu_torch.train`'s main on a
      generated BOP tree (glmo widths and batch, device_rotate, background
@@ -47,7 +54,12 @@ Phases, each of which fails the run on error:
      through harness.run_test after step 3, counts zeroed before and read
      after; then `python -m lc_tpu_torch.test` on its model_final; then the
      test CLI on configs/zsyn.yaml's and configs/gspsyn.yaml's generated
-     trees (3 batches each, random-weight .pth files);
+     trees (3 batches each, random-weight .pth files); then the train CLI
+     on zsyn (a second split mixed in as train_dataset_1: RatioMixLoader;
+     sym_aware from step 0) and gspsyn trees, six steps with an evaluation
+     after step 3, a run resumed from the step-3 checkpoint that must start
+     from its stored histogram and clip thresholds, and the test CLI on
+     model_final;
   8. one JSON line of kernel numbers, the card line, and the final
      {"ok": true, "device": ...} line.
 Imports torch, numpy, scipy, the standard library and the port only. Exits
@@ -1278,68 +1290,91 @@ def composed_rotated_crop(device) -> dict:
 # phase 6: the training path
 # --------------------------------------------------------------------------
 
-def glmo_train_cfg():
-    """configs/glmo.yaml with the device-rotated crop and the LC loss at its
-    full weight from the first step."""
+def family_train_cfg(name: str, *overrides):
+    """configs/<name>.yaml with the device-rotated crop and the LC loss at
+    its full weight from the first step."""
     from lc_tpu_torch.utils.config import load_config
     here = os.path.dirname(os.path.abspath(__file__))
-    return load_config(os.path.join(here, 'configs', 'glmo.yaml'), [
+    return load_config(os.path.join(here, 'configs', f'{name}.yaml'), [
         'dataloader.device_rotate=true', 'loss.pose_loss_start_step=0',
-        'loss.pose_loss_start_epoch=0'])
+        'loss.pose_loss_start_epoch=0', *overrides])
 
 
-def phase_train(device) -> dict:
+# the training phases: (tag, config, path (widths, head), loss terms)
+TRAIN_PATHS = (('glmo', 'glmo', GLMO, ('loss_noc', 'loss_seg', 'loss_pose')),
+               ('zlmo', 'zlmo', ZLMO,
+                ('loss_noc_bin', 'loss_seg', 'loss_pose')),
+               ('gsplmo', 'gsplmo', GSPLMO, ('loss_kpts', 'loss_pose')))
+
+
+def phase_train(device, tag: str = 'glmo') -> dict:
+    """Six steps of train.step_inputs + train_step on two in-memory
+    batches of the family's config at its widths and batch (random
+    weights, bf16 convolutions), counts zeroed before and read after; then
+    a stage breakdown of one more step."""
     import torch
+    from types import SimpleNamespace
     from lc_tpu_torch import harness
     from lc_tpu_torch.data import synthetic
     from lc_tpu_torch.data.pipeline import collate
     from lc_tpu_torch.loss.loss_fn import init_loss_state
-    from lc_tpu_torch.models import build_model, set_compute_dtype
-    from lc_tpu_torch.models.weights import (random_flax_variables,
-                                             state_dict_from_flax)
+    from lc_tpu_torch.models import set_compute_dtype
     from lc_tpu_torch.optim.factory import build_optimizer
     from lc_tpu_torch.train import step_inputs
     from lc_tpu_torch.train_step import train_step
-    cfg = glmo_train_cfg()
+    _, name, path, terms = next(p for p in TRAIN_PATHS if p[0] == tag)
+    cfg = family_train_cfg(name)
     ds_cfg = cfg.train_dataset
     bs = cfg.dataloader.batch_size
-    check(bs == GLMO['batch_size'], 'glmo batch size')
+    # the config's top level or its train_dataset (BOPDataset's rule)
+    in_wh, out_wh = (tuple(cfg.get(k, ds_cfg.get(k)))
+                     for k in ('net_input_wh', 'net_output_wh'))
+    check((bs, in_wh, out_wh) == (path['batch_size'], path['net_input_wh'],
+                                  path['net_output_wh']),
+          f'{tag}: batch and widths of the config')
+    bit_cnt = path_bit_cnt(path)
+    sparse_cnt = cfg.get('sparse_cnt', 0)
     t0 = time.perf_counter()
     blobs = synthetic.render_train_set(
-        2 * bs, seed=21, net_input_wh=tuple(ds_cfg.net_input_wh),
-        net_output_wh=tuple(ds_cfg.net_output_wh),
+        2 * bs, seed=21, net_input_wh=in_wh, net_output_wh=out_wh,
         dzi_scale_ratio=ds_cfg.dzi_scale_ratio,
         dzi_shift_ratio=ds_cfg.dzi_shift_ratio,
         dzi_pad_scale=ds_cfg.dzi_pad_scale, rotate_prob=ds_cfg.rotate_prob,
         switch_bg_prob=ds_cfg.switch_bg_prob,
-        pixel_aug_prob=ds_cfg.pixel_aug_prob)
+        pixel_aug_prob=ds_cfg.pixel_aug_prob, sparse_cnt=sparse_cnt)
     batches = [collate(blobs[i * bs:(i + 1) * bs]) for i in range(2)]
-    log(f'[train] rendered {2 * bs} training frames in '
+    log(f'[train_{tag}] rendered {2 * bs} training frames in '
         f'{time.perf_counter() - t0:.1f} s')
-    check(all(b['switch_bg'].any() for b in batches), 'no background switch')
+    rotated = sum(int((b['crop_rot'] != 0).sum()) for b in batches)
+    if ds_cfg.switch_bg_prob:
+        check(all(b['switch_bg'].any() for b in batches),
+              'no background switch')
 
-    model = build_model('cdpn_resnet', {'concat': False})
-    model.load_state_dict(state_dict_from_flax(random_flax_variables(seed=0)))
-    model = set_compute_dtype(model.to(device), torch.bfloat16)
+    model = set_compute_dtype(path_model(path).to(device), torch.bfloat16)
     initial = {k: v.detach().clone() for k, v in model.named_parameters()}
-    steps_per_epoch = 100                      # nominal: schedule length only
-    loss_cfg = harness.make_loss_config(cfg, steps_per_epoch)
+    # the schedule's length: num_steps, or nominal epochs of 100 steps
+    steps_per_epoch = 0 if cfg.train.get('num_steps') else 100
+    loss_cfg = harness.make_loss_config(cfg, steps_per_epoch, bit_cnt)
     check(loss_cfg.full_pose_loss_step == 0, 'LC loss not at full weight')
+    check(loss_cfg.sparse == (sparse_cnt > 3) and loss_cfg.bit_cnt == bit_cnt,
+          f'{tag}: loss head')
     optimizer, scheduler = build_optimizer(
         model.parameters(), cfg.optimizer, cfg.scheduler,
-        cfg.train.num_epochs * steps_per_epoch)
-    loss_state = init_loss_state(device)
-    pp = dict(net_input_wh=tuple(ds_cfg.net_input_wh),
-              net_output_wh=tuple(ds_cfg.net_output_wh), mask_nearest=False,
-              train=True)
+        cfg.train.get('num_steps') or cfg.train.num_epochs * steps_per_epoch)
+    loss_state = init_loss_state(loss_cfg, device)
+    pp = harness.preprocess_kwargs(cfg, SimpleNamespace(
+        net_input_wh=in_wh, net_output_wh=out_wh,
+        mask_nearest=ds_cfg.get('mask_interp', 'linear') == 'nearest'),
+        train=True)
     s = loss_cfg.dense_sample
     seed = 42
+    sym_aware_start = cfg.get('sym_aware_start', 0)
 
     def one_step(step, loss_state):
         # the body of train.train's loop, on in-memory batches
         gt, top_left = step_inputs(batches[step % 2], seed, step, device, pp, s)
         return train_step(model, optimizer, scheduler, loss_cfg, loss_state,
-                          gt, step, top_left)
+                          gt, step, top_left, sym_aware_start=sym_aware_start)
 
     zero_kernel_counts()
     all_metrics = []
@@ -1361,31 +1396,83 @@ def phase_train(device) -> dict:
 
     for i, m in enumerate(all_metrics):
         check(all(np.isfinite(v) for v in m.values()),
-              f'non-finite training metrics at step {i + 1}: {m}')
-    check(set(all_metrics[0]) >= {'loss', 'loss_noc', 'loss_seg', 'loss_pose',
-                                  'grad_norm'}, 'missing metrics')
-    check(thr_after_1 != -1.0 and thr_after_1 > 0,
-          f'weight clipper threshold after step 1: {thr_after_1}')
+              f'{tag}: non-finite training metrics at step {i + 1}: {m}')
+    check(set(all_metrics[0]) == {'loss', 'grad_norm', *terms},
+          f'{tag}: metrics {sorted(all_metrics[0])}')
+    thr = float(loss_state.weight_clip.max_norm)
+    # the sparse loss taps no weight logits: its clipper is set from an
+    # observed norm of 0 at step 1 and moves by its EMA from there
+    check(bool(loss_state.weight_clip.started) and thr > 0
+          and (sparse_cnt > 3 or thr_after_1 > 0),
+          f'{tag}: weight clipper threshold {thr_after_1} after step 1, '
+          f'{thr} after {TRAIN_STEPS}')
+    hist = None
+    if bit_cnt:
+        hist = loss_state.histogram.cpu().numpy()
+        check(hist.shape == (sum(bit_cnt),) and np.abs(hist - 0.5).max() > 0,
+              f'{tag}: the binary-code histogram did not move: {hist}')
     changed = sum(not torch.equal(p.detach(), initial[k])
                   for k, p in model.named_parameters())
     max_delta = max(float((p.detach() - initial[k]).abs().max())
                     for k, p in model.named_parameters())
     check(changed > 0, 'no parameter changed')
     check(counts['shear_x'] == 6 * TRAIN_STEPS,
-          f'shear kernel launched {counts["shear_x"]} times in '
+          f'{tag}: shear kernel launched {counts["shear_x"]} times in '
           f'{TRAIN_STEPS} steps (expected 6 per step)')
-    rep = dict(steps=TRAIN_STEPS, batch_size=bs, launches=counts,
+    rep = dict(config=name, steps=TRAIN_STEPS, batch_size=bs,
+               net_input_wh=in_wh, net_output_wh=out_wh, bit_cnt=bit_cnt,
+               sparse_cnt=sparse_cnt, launches=counts,
+               rotated_crops=f'{rotated}/{2 * bs}',
                first_step_s=first_s, timed_steps=TRAIN_STEPS - 1,
                timed_wall_s=wall,
                crops_per_s=(TRAIN_STEPS - 1) * bs / wall,
                weight_clip_after_step_1=thr_after_1,
+               weight_clip_after_last=thr,
+               histogram=None if hist is None else hist.tolist(),
                params_changed=f'{changed}/{len(initial)}',
                max_param_delta=max_delta, metrics=all_metrics)
-    log(f'[train] {json.dumps(rep)}')
+    log(f'[train_{tag}] {json.dumps(rep)}')
+    if bit_cnt:
+        rep['decode_on_card'] = check_training_decode(bit_cnt, device)
     rep['stages'] = train_stage_breakdown(
         lambda: one_step(TRAIN_STEPS, loss_state))
-    log(f'[train] stages of one step: {json.dumps(rep["stages"])}')
+    log(f'[train_{tag}] stages of one step: {json.dumps(rep["stages"])}')
     return rep
+
+
+def check_training_decode(bit_cnt, device) -> dict:
+    """The straight-through training decode on the card against the CPU on
+    zlmo's shapes: random logits (|x| >= 0.05), GT bits and mask; values
+    and the gradient of a random cotangent. Every pixel has several wrong
+    bits, so the most significant one is argmax's first of several hits:
+    its tie-breaking on the card is checked here, not assumed."""
+    import torch
+    from lc_tpu_torch.codec import logits_to_noc_with_gt, noc_to_bits
+    g = torch.Generator().manual_seed(5)
+    shape = (ZLMO['batch_size'],) + ZLMO['net_output_wh']
+    C = sum(bit_cnt)
+    logits = (torch.rand(shape + (C,), generator=g) * 2.95 + 0.05) \
+        * (torch.randint(0, 2, shape + (C,), generator=g) * 2 - 1)
+    _, raw = noc_to_bits(torch.rand(shape + (3,), generator=g) * 2 - 1,
+                         bit_cnt, False)
+    mask = torch.rand(shape, generator=g) < 0.7
+    cot = torch.randn(shape + (3,), generator=g)
+    res = []
+    for dev in ('cpu', device):
+        x = logits.to(dev).clone().requires_grad_()
+        v = logits_to_noc_with_gt(x, raw.to(dev), bit_cnt, mask.to(dev),
+                                  True)
+        v.backward(cot.to(dev))
+        res.append((v.detach().cpu(), x.grad.cpu()))
+    (v0, g0), (v1, g1) = res
+    err = dict(value=float((v0 - v1).abs().max()),
+               grad=float((g0 - g1).abs().max()),
+               grad_entries_differ=int(((g0 != 0) != (g1 != 0)).sum()))
+    check(err['value'] <= 1e-6 and err['grad'] <= 1e-6
+          and err['grad_entries_differ'] == 0,
+          f'training decode on the card vs the CPU: {err}')
+    log(f'[train_zlmo] training decode, card vs CPU: {json.dumps(err)}')
+    return err
 
 
 def train_stage_breakdown(step_fn) -> dict:
@@ -1396,7 +1483,8 @@ def train_stage_breakdown(step_fn) -> dict:
     and copies launched inside it from any thread (autograd launches the
     backward's kernels from its device thread while the caller waits in the
     'backward' range). Then the device-busy time, the kernel count and the
-    busy share of the wall, and what no range claims."""
+    busy share of the wall, what no range claims, and the shear kernel's
+    recorded launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -1438,7 +1526,15 @@ def train_stage_breakdown(step_fn) -> dict:
             + e.time_range.elapsed_us() / 1e3
     host = [e for e in prof.key_averages()
             if e.device_type == cpu and e.key not in annotations]
+    # the shear kernel's (B2) launches the profiler recorded in this step,
+    # at the path's own crops and angles
+    shear_ms = [e.time_range.elapsed_us() / 1e3 for e in work
+                if 'shear_' in e.name]
     stages.update(
+        shear_x_recorded=dict(launches=len(shear_ms),
+                              device_ms=sum(shear_ms),
+                              mean_ms=float(np.mean(shear_ms))
+                              if shear_ms else None),
         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_outside_ranges_ms=busy_ms - sum(
             v['device_ms'] for k, v in stages.items() if k in TRAIN_STAGES),
@@ -1479,7 +1575,7 @@ def phase_cli(device) -> dict:
             cv2.imwrite(os.path.join(bg, f'{i}.jpg'), rng.integers(
                 0, 256, (60, 80, 3)).repeat(8, 0).repeat(8, 1).astype(np.uint8))
         log(f'[cli] generated the BOP tree in {time.perf_counter() - t0:.1f} s')
-        cfg = glmo_train_cfg()
+        cfg = family_train_cfg('glmo')
         del cfg.train['num_epochs']
         cfg.merge_from_dict({
             'train.num_steps': TRAIN_STEPS, 'train.test_every': 3,
@@ -1609,6 +1705,156 @@ def phase_cli_families(device) -> dict:
     return rep
 
 
+def phase_cli_train_families(device) -> dict:
+    """`python -m lc_tpu_torch.train` as a user runs it on the zebra and the
+    sparse family, at their configs' widths and batch: configs/zsyn.yaml on
+    a generated synthetic_sym tree with a second generated split mixed in
+    as train_dataset_1 at ratio 0.75 (RatioMixLoader; sym_aware from step
+    0, so the targets select among the symmetric candidates on the card),
+    configs/gspsyn.yaml on a generated tree with its keypoint pickle. Each:
+    six steps with an evaluation after step 3 (counts zeroed before and
+    read after), a second run resumed from the step-3 checkpoint that must
+    start from the stored histogram and clip thresholds, then
+    `python -m lc_tpu_torch.test` on the first run's model_final."""
+    import pickle
+    import tempfile
+    import torch
+    import yaml
+    from lc_tpu_torch import harness
+    from lc_tpu_torch import test as test_cli
+    from lc_tpu_torch import train as train_cli
+    from lc_tpu_torch.data import synthetic
+    from lc_tpu_torch.utils.checkpoint import load_checkpoint
+    from lc_tpu_torch.utils.config import load_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    dev_args = [] if device.type == 'cuda' else ['--device', 'cpu']
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, terms in (
+                ('zsyn', ('loss_noc_bin', 'loss_seg', 'loss_pose')),
+                ('gspsyn', ('loss_kpts', 'loss_pose'))):
+            cfg = load_config(os.path.join(here, 'configs', f'{name}.yaml'))
+            bs = cfg.dataloader.batch_size
+            root = os.path.join(tmp, name)
+            sym = name == 'zsyn'
+            t0 = time.perf_counter()
+            gen = dict(symmetric=sym)
+            train_list = synthetic.generate_dataset(
+                root, n_images=bs, split='train_syn', seed=6, **gen)
+            test_list = synthetic.generate_dataset(
+                root, n_images=8, split='test_syn', seed=7,
+                list_name='test_list.txt', **gen)
+            overrides = {
+                'train.num_steps': TRAIN_STEPS, 'train.test_every': 3,
+                'train.ckpt_every': 100,
+                'train_dataset.dataset_root': root,
+                'train_dataset.list_files': [train_list],
+                'test_dataset.dataset_root': root,
+                'test_dataset.list_files': [test_list]}
+            if sym:
+                pbr_list = synthetic.generate_dataset(
+                    root, n_images=bs, split='train_pbr', seed=8, **gen)
+                overrides['train_dataset_1'] = {
+                    'name': 'synthetic_sym', 'ratio': 0.75,
+                    'list_files': [pbr_list]}
+            else:
+                overrides['fps'] = os.path.join(root, 'fps.pkl')
+                with open(overrides['fps'], 'wb') as f:
+                    pickle.dump({1: synthetic.box_surface_points(
+                        np.array(BOX_HALF_EXTENTS), 16)}, f)
+            cfg.merge_from_dict(overrides)
+            cfg_path = os.path.join(tmp, f'{name}.yaml')
+            with open(cfg_path, 'w') as f:
+                yaml.safe_dump(cfg.to_dict(), f)
+            log(f'[train_cli_{name}] generated the tree in '
+                f'{time.perf_counter() - t0:.1f} s')
+            _, loader = harness.make_datasets(cfg, train=True, seed=0)
+            mixed = isinstance(loader, harness.RatioMixLoader)
+            check(mixed == sym, f'{name}: RatioMixLoader {mixed}')
+
+            out = os.path.join(tmp, f'out_{name}')
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            train_cli.main(['--config', cfg_path, '--output', out] + dev_args)
+            wall = time.perf_counter() - t0
+            counts = kernel_counts()
+            exp = os.path.join(out, f'{name}-1')
+            with open(os.path.join(exp, 'metrics.jsonl')) as f:
+                lines = [json.loads(x) for x in f]
+            check([m['step'] for m in lines] == [1, TRAIN_STEPS],
+                  f'{name} train CLI metrics lines: {lines}')
+            check(set(lines[0]) == {'step', 'loss', 'grad_norm', *terms},
+                  f'{name} train CLI metrics: {sorted(lines[0])}')
+            check(all(np.isfinite(v) for m in lines for v in m.values()),
+                  f'non-finite {name} train CLI metrics: {lines}')
+            check(counts['lm_refine'] == 3,
+                  f'{name} train CLI: LM kernel launched '
+                  f'{counts["lm_refine"]} times in one evaluation of one '
+                  'batch (expected 3)')
+            best = [f for f in os.listdir(exp)
+                    if f.startswith('model_best_3_')]
+            check(len(best) == 1, f'{name}: no scored checkpoint exported')
+            best = os.path.join(exp, best[0])
+            stored = load_checkpoint(best)['state']['loss_state']
+
+            # resume from the step-3 checkpoint (model_best_3 is the full
+            # training state at step 3): the loop's first step must get the
+            # stored histogram and clip thresholds
+            seen = []
+            real_step = train_cli.train_step
+
+            def spy(*args, **kw):
+                seen.append((args[6], args[4]))
+                return real_step(*args, **kw)
+            train_cli.train_step = spy
+            try:
+                out2 = os.path.join(tmp, f'resumed_{name}')
+                train_cli.main(['--config', cfg_path, '--output', out2,
+                                '--ckpt', best] + dev_args)
+            finally:
+                train_cli.train_step = real_step
+            first_step, state = seen[0]
+            check(first_step == 3 and len(seen) == TRAIN_STEPS - 3,
+                  f'{name}: resumed at step {first_step}, {len(seen)} steps')
+            same = [(a is None and b is None) or (
+                a is not None and b is not None
+                and torch.equal(a.cpu(), b.cpu()))
+                for a, b in zip(
+                    (state.histogram, *state.weight_clip),
+                    (stored.histogram, *stored.weight_clip))]
+            check(all(same) and (stored.histogram is None) == (not sym),
+                  f'{name}: the resumed loss state is not the stored one '
+                  f'({same})')
+            with open(os.path.join(out2, f'{name}-1', 'metrics.jsonl')) as f:
+                resumed = [json.loads(x) for x in f]
+            check(resumed[-1]['step'] == TRAIN_STEPS and all(
+                np.isfinite(v) for v in resumed[-1].values()),
+                f'{name}: resumed run metrics {resumed}')
+
+            t0 = time.perf_counter()
+            res = test_cli.main(['--weight',
+                                 os.path.join(exp, 'model_final.ckpt'),
+                                 '--config', cfg_path, '--output',
+                                 os.path.join(tmp, f'test_{name}'),
+                                 '--obj', '1'] + dev_args)
+            test_wall = time.perf_counter() - t0
+            for solver, r in res.items():
+                check(len(r['errors']) == 8,
+                      f'{name} test CLI: not 8 poses for {solver}')
+            rep[name] = dict(
+                train_wall_s=wall, launches=counts, ratio_mix=mixed,
+                metrics=lines, resumed_last=resumed[-1],
+                resumed_vs_uninterrupted_loss=resumed[-1]['loss']
+                - lines[-1]['loss'],
+                stored_histogram=None if stored.histogram is None
+                else stored.histogram.tolist(),
+                stored_weight_clip=float(stored.weight_clip.max_norm),
+                test_wall_s=test_wall,
+                add_s_0_10={k: v['avg_score'] for k, v in res.items()})
+            log(f'[train_cli_{name}] {json.dumps(rep[name])}')
+    return rep
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1653,20 +1899,31 @@ def main() -> int:
     t0 = time.perf_counter()
     shear = phase_shear(device)
     log(f'[phase] shear kernel vs plain: {time.perf_counter() - t0:.1f} s')
+    trains = {}
+    for tag, *_ in TRAIN_PATHS:
+        t0 = time.perf_counter()
+        trains[tag] = phase_train(device, tag)
+        log(f'[phase] {tag} training path: {time.perf_counter() - t0:.1f} s')
+        log(f'[train_{tag}] {trains[tag]["crops_per_s"]:.1f} train crops/s '
+            f'on {card}')
     t0 = time.perf_counter()
-    train_rep = phase_train(device)
-    log(f'[phase] training path: {time.perf_counter() - t0:.1f} s')
-    log(f'[train] {train_rep["crops_per_s"]:.1f} train crops/s on {card}')
-    t0 = time.perf_counter()
-    phase_cli(device)
+    cli = phase_cli(device)
     log(f'[phase] train and test CLIs: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
     phase_cli_families(device)
     log(f'[phase] test CLI on the zebra and sparse families: '
         f'{time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    cli_train = phase_cli_train_families(device)
+    log(f'[phase] train CLI on the zebra and sparse families: '
+        f'{time.perf_counter() - t0:.1f} s')
 
     a = lm['a_final_refine']
+    # B1: the inference paths, and the evaluations of the train CLIs
     launches = {tag: rep['lm_launches'] for tag, rep in paths.items()}
+    launches['train_cli_glmo'] = cli['launches']['lm_refine']
+    launches.update({f'train_cli_{k}': v['launches']['lm_refine']
+                     for k, v in cli_train.items()})
     kernels = [dict(
         name='lm_refine', route='cuda', source='lc_tpu_torch/csrc/lm_refine.cu',
         replaces='lc_tpu/pnp/pallas_lm.py:32',
@@ -1678,10 +1935,15 @@ def main() -> int:
         bound_by=a['bound_by'], library_ms=None,
         tolerance=TOL, cases=lm, paths_own_inputs=held_summary(held))]
     x = shear['C3_x']
+    # B2: the three training paths (device_rotate), and the glmo train CLI
+    shear_launches = {f'train_{tag}': rep['launches']['shear_x']
+                      for tag, rep in trains.items()}
+    shear_launches['train_cli_glmo'] = cli['launches']['shear_x']
     kernels.append(dict(
         name='shear_x', route='cuda', source='lc_tpu_torch/csrc/shear_x.cu',
         replaces='lc_tpu/ops/pallas_warp.py:53',
-        launches=train_rep['launches']['shear_x'],
+        launches=sum(shear_launches.values()),
+        launches_by_path=shear_launches,
         max_abs_err=max(c['max_abs_err'] for k, c in shear.items()
                         if k != 'rotated_crop'),
         ms=x['ms'], plain_ms=x['plain_ms'], bound_ms=x['bound_ms'],

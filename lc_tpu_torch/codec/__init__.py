@@ -1,1 +1,2 @@
-from .floatbits import bits_to_int, calc_bit_count, logits_to_noc, noc_to_bits
+from .floatbits import bits_to_int, calc_bit_count, logits_to_noc, \
+    logits_to_noc_with_gt, noc_to_bits, noc_to_nn_target

@@ -1,6 +1,6 @@
 """ZebraPose-style Gray-code NOC codec, "floatbits" (counterpart of
-lc_tpu/codec/floatbits.py; the inference decode, the training decode with
-GT arrives with the zebra training slice).
+lc_tpu/codec/floatbits.py): the encoding, the inference decode and the
+straight-through training decode with the GT bits.
 
 Each NOC axis in (-1, 1) is quantized to 2^n bins, binary-expanded MSB
 first and turned into Gray code; under `black_background` the two most
@@ -102,3 +102,61 @@ def logits_to_noc(logits: torch.Tensor, bit_cnt: Sequence[int],
             / ((2 ** n - 1) * 0.5) - 1.0
             for sl, n in zip(_axis_slices(bit_cnt), bit_cnt)]
     return torch.stack(vals, -1)
+
+
+def _decode_axis_with_gt(logits: torch.Tensor, gt_raw_bits: torch.Tensor,
+                         gt_msk: torch.Tensor, black_background: bool
+                         ) -> torch.Tensor:
+    """Training decode of one axis, straight through at the most
+    significant wrong bit: logits (..., n) Gray logits, gt_raw_bits (..., n)
+    bool plain binary, gt_msk (...) bool. Inside the mask the value is the
+    GT above that bit plus the sigmoid of its binary logit times its weight,
+    the only gradient path; outside it the hard decode, detached. Returns a
+    value in [0, 2^n - 1]."""
+    n = logits.shape[-1]
+    # conditioned on the GT's binary bit i-1, Gray bit i's logit becomes
+    # binary bit i's with its sign flipped where that GT bit is set; the
+    # first two carry the black_background flip
+    prev_gt = torch.cat((torch.zeros_like(gt_raw_bits[..., :1]),
+                         gt_raw_bits[..., :-1]), -1)
+    sign = 1.0 - 2.0 * prev_gt.to(logits.dtype)
+    bb = torch.tensor([-1.0 if black_background and i < 2 else 1.0
+                       for i in range(n)], dtype=logits.dtype,
+                      device=logits.device)
+    bin_logits = logits * sign * bb          # > 0: binary bit predicted 1
+    pred_bits = bin_logits > 0
+    w = 2.0 ** torch.arange(n - 1, -1, -1, dtype=logits.dtype,
+                            device=logits.device)
+    out_msk_vals = (pred_bits.to(logits.dtype) * w).sum(-1)
+
+    err = pred_bits ^ gt_raw_bits
+    err[..., -1] = True                      # a hit always; the LSB is soft
+    # the first True: argmax over an integer cast (ties go to the lowest
+    # index in torch's argmax on both devices, a documented guarantee)
+    err_msb = torch.argmax(err.to(torch.uint8), -1)
+    onehot = torch.nn.functional.one_hot(err_msb, n).to(logits.dtype)
+    correct_part = (gt_raw_bits.to(logits.dtype) * (1.0 - onehot) * w).sum(-1)
+    picked_logit = (bin_logits * onehot).sum(-1)
+    picked_weight = (w * onehot).sum(-1)
+    in_msk_vals = correct_part + torch.sigmoid(picked_logit) * picked_weight
+    return torch.where(gt_msk, in_msk_vals, out_msk_vals.detach())
+
+
+def logits_to_noc_with_gt(logits: torch.Tensor, gt_raw_bits: torch.Tensor,
+                          bit_cnt: Sequence[int], gt_msk: torch.Tensor,
+                          black_background: bool) -> torch.Tensor:
+    """Training decode: Gray logits (..., sum(bit_cnt)), the GT's plain
+    binary bits and the GT mask (...) -> NOC (..., 3)."""
+    vals = [_decode_axis_with_gt(logits[..., sl], gt_raw_bits[..., sl], gt_msk,
+                                 black_background) / ((2 ** n - 1) * 0.5) - 1.0
+            for sl, n in zip(_axis_slices(bit_cnt), bit_cnt)]
+    return torch.stack(vals, -1)
+
+
+def noc_to_nn_target(noc: torch.Tensor, bit_cnt: Sequence[int],
+                     black_background: bool
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """GT NOC -> (the training target, the Gray bits as float32; the plain
+    binary bits, bool), channel-last."""
+    mod_bits, raw_bits = noc_to_bits(noc, bit_cnt, black_background)
+    return mod_bits.to(torch.float32), raw_bits

@@ -345,7 +345,8 @@ def render_train_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
                      dzi_scale_ratio: float = 0.25,
                      dzi_shift_ratio: float = 0.25, dzi_pad_scale: float = 1.5,
                      rotate_prob: float = 1.0, switch_bg_prob: float = 0.5,
-                     pixel_aug_prob: float = 0.8) -> list[dict]:
+                     pixel_aug_prob: float = 0.8, symmetric: bool = False,
+                     sparse_cnt: int = 0) -> list[dict]:
     """Training host blobs held in memory, in the form BOPDataset.sample
     gives under dataloader.device_rotate with background switching: full
     frames and the crop's center, scale and rotation for the device's
@@ -353,14 +354,26 @@ def render_train_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
     are ray-cast directly at the crop's pixels (the source pixel of crop
     pixel x is the affine's inverse at x, plus half a pixel), where the
     dataset warps full-image maps with cv2; the background crops are random
-    textures. Needs numpy and scipy only."""
+    textures. symmetric: the object carries generate_dataset's discrete
+    symmetry (180° about z), so Rt_candi holds its 2 GT-equivalent poses, as
+    BOPDataset gives them for a sym_aware synthetic_sym tree; sparse_cnt >
+    0: the blobs carry the first sparse_cnt keypoints of
+    box_surface_points(half_extents, 16) as pts3d (render_eval_set's).
+    Gray-code targets need nothing more: they are made on the device from
+    homo_z_out. Needs numpy and scipy only."""
     import types
     from .model_info import bbox3d_from_scale
     from .pipeline import aug_bbox, check_points
     from ..geom.affine import affine33, crop_affine, invert_affine
-    from ..geom.symmetry import pad_candidates
+    from ..geom.symmetry import pad_candidates, symmetry_pose_candidates
     rng = np.random.default_rng(seed)
     he = np.asarray(half_extents, np.float32)
+    sym_info = {}
+    if symmetric:
+        m = np.eye(4)
+        m[:3, :3] = sciR.from_rotvec([0, 0, np.pi]).as_matrix()
+        sym_info['symmetries_discrete'] = [m.reshape(-1).tolist()]
+    keypoints = box_surface_points(he, 16)[:sparse_cnt] if sparse_cnt else None
     H, W = im_hw
     out_w, out_h = net_output_wh
     in_w, in_h = net_input_wh
@@ -396,8 +409,8 @@ def render_train_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
         sym_ck = check_points(hit, rng, 1)
         if sym_ck is None:
             raise RuntimeError(f'frame {im_id}: the crop misses the object')
-        cands, cand_valid = pad_candidates(
-            np.concatenate((R, t[:, None]), -1)[None].astype(np.float32), 1)
+        cands = symmetry_pose_candidates(R, t, sym_info)
+        cands, cand_valid = pad_candidates(cands, len(cands))
         switch_bg = rng.random() < switch_bg_prob
         bg_crop = (rng.integers(0, 256, (in_h // 8, in_w // 8, 3))
                    .repeat(8, 0).repeat(8, 1).astype(np.uint8)) if switch_bg \
@@ -431,4 +444,6 @@ def render_train_set(n_images: int, *, seed: int = 0, obj_id: int = 1,
             'diameter': np.float32(2.0 * np.linalg.norm(he)),
             'pixel_aug': np.bool_(rng.random() < pixel_aug_prob),
         })
+        if keypoints is not None:
+            blobs[-1]['pts3d'] = keypoints.copy()
     return blobs

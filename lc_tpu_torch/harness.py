@@ -2,6 +2,7 @@
 of lc_tpu/harness.py, on one device)."""
 from __future__ import annotations
 
+import copy
 import logging
 import time
 
@@ -18,7 +19,9 @@ from .models import build_model, default_compute_dtype, set_compute_dtype
 logger = logging.getLogger(__name__)
 
 
-def make_loss_config(cfg, steps_per_epoch: int, bit_cnt=None) -> LossConfig:
+def make_loss_config(cfg, steps_per_epoch: int, bit_cnt) -> LossConfig:
+    """The loss hyperparameters of `cfg`; bit_cnt is the training set's
+    (BOPDataset.bit_cnt: None but for the Gray-code head)."""
     lc = cfg.loss
     pose_cfg = lc.get('pose_loss_cfg', {})
     full = max(lc.get('pose_loss_start_step', 0),
@@ -52,19 +55,82 @@ def build_model_from_cfg(cfg, total_bit_cnt: int = 0):
 
 def make_datasets(cfg, train: bool = True, seed: int = 0):
     """(dataset, loader) of the training or the test split. Training loaders
-    shuffle and drop the last partial batch."""
+    shuffle and drop the last partial batch. With train_dataset_1 the
+    training loader is a RatioMixLoader: int(batch · ratio) crops of each
+    batch from train_dataset_1 (its missing keys taken from train_dataset),
+    the rest from train_dataset, each sub-loader on half the threads with
+    seeds seed and seed + 1 (reference utils.py:79-147, MultiLoader); the
+    dataset returned is train_dataset's."""
+    batch = cfg.dataloader.batch_size
     if train and 'train_dataset_1' in cfg:
-        raise NotImplementedError('RatioMixLoader (train_dataset_1) is not '
-                                  'ported yet')
+        d1_cfg = copy.deepcopy(cfg.train_dataset_1)
+        for k, v in cfg.train_dataset.items():
+            if k not in d1_cfg:
+                d1_cfg[k] = v
+        b1 = int(batch * cfg.train_dataset_1.ratio)
+        ds1 = BOPDataset(d1_cfg, cfg, train=True)
+        ds0 = BOPDataset(cfg.train_dataset, cfg, train=True)
+        nw = max(cfg.dataloader.get('num_workers', 4) // 2, 1)
+        return ds0, RatioMixLoader(
+            Loader(ds0, batch - b1, seed=seed + 1, num_threads=nw),
+            Loader(ds1, b1, seed=seed, num_threads=nw))
     if train and cfg.dataloader.get('multiprocess', False):
         raise NotImplementedError('MPLoader (dataloader.multiprocess) is not '
                                   'ported yet')
     ds = BOPDataset(cfg.train_dataset if train else cfg.test_dataset, cfg,
                     train=train)
-    loader = Loader(ds, cfg.dataloader.batch_size, seed=seed, shuffle=train,
-                    drop_last=train,
+    loader = Loader(ds, batch, seed=seed, shuffle=train, drop_last=train,
                     num_threads=cfg.dataloader.get('num_workers', 4))
     return ds, loader
+
+
+class RatioMixLoader:
+    """Endless mixer of two loaders into one batch (real + PBR ratio
+    mixing): each batch is loader0's next batch followed by loader1's, each
+    sub-stream restarting at its own end. Rt_candi and candi_valid are
+    padded to the larger candidate count (repeats of the first candidate,
+    not valid), so the two streams may differ in their symmetries."""
+
+    def __init__(self, loader0: Loader, loader1: Loader):
+        self.loaders = (loader0, loader1)
+        self.iters = [iter(loader0), iter(loader1)]
+
+    def __len__(self):
+        return max(len(x) for x in self.loaders)
+
+    def set_position(self, batch_index: int):
+        """Resume at a mixed-batch index: each sub-loader has consumed that
+        many of its own batches."""
+        for x in self.loaders:
+            x.set_position(batch_index)
+        self.iters = [iter(x) for x in self.loaders]
+
+    def _next(self, which: int) -> dict:
+        try:
+            return next(self.iters[which])
+        except StopIteration:
+            self.iters[which] = iter(self.loaders[which])
+            return next(self.iters[which])
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        b0, b1 = self._next(0), self._next(1)
+        out = {}
+        for k in b0:
+            a, b = b0[k], b1[k]
+            if k in ('Rt_candi', 'candi_valid') \
+                    and a.shape[1] != b.shape[1]:
+                a, b = (_pad_candidates(x, max(a.shape[1], b.shape[1]),
+                                        k == 'candi_valid') for x in (a, b))
+            out[k] = np.concatenate((a, b), 0)
+        return out
+
+
+def _pad_candidates(x: np.ndarray, k: int, is_mask: bool) -> np.ndarray:
+    pad = np.zeros_like(x[:, :1]) if is_mask else x[:, :1]
+    return np.concatenate((x, np.repeat(pad, k - x.shape[1], 1)), 1)
 
 
 def preprocess_kwargs(cfg, dataset, train: bool) -> dict:

@@ -1,10 +1,12 @@
 """Loss orchestration: surrogate and LC pose losses with the ramp and the
-gradient taps (counterpart of lc_tpu/loss/loss_fn.py, dense continuous-NOC
-path; reference losses.py:239-386).
+gradient taps (counterpart of lc_tpu/loss/loss_fn.py; reference
+losses.py:239-386), for the three heads: dense continuous NOC, dense
+Gray codes (zebra) and sparse keypoints.
 
-The clip thresholds live in an explicit LossState; the observed
-activation-gradient norms come back as the gradients of 0-d tap tensors
-(see clip.py) and are folded in by `finalize_loss_state`.
+The binary-code histogram and the clip thresholds live in an explicit
+LossState; the observed activation-gradient norms come back as the
+gradients of 0-d tap tensors (see clip.py) and are folded in by
+`finalize_loss_state`.
 """
 from __future__ import annotations
 
@@ -16,8 +18,11 @@ import torch
 from .clip import ClipperState, clip_threshold, grad_tap, init_clipper_state, \
     update_clipper_state
 from .cov_mixed import loss_cov_mixed
-from .surrogate import seg_bce_loss, seg_l1_loss
-from ..geom.projection import gen_uv
+from .surrogate import init_bin_histogram, seg_bce_loss, seg_l1_loss, \
+    sparse_kpt_nll_loss, xyz_bin_loss
+from .targets import nn_out_to_xyz
+from ..geom.pose import pose7_to_RT
+from ..geom.projection import gen_uv, project_apply
 
 TAP_NAMES = ('weight', 'scale', 'pts')
 
@@ -45,13 +50,23 @@ class LossConfig:
 
 
 class LossState(NamedTuple):
+    histogram: torch.Tensor | None       # (sum(bit_cnt),) for Gray codes
     weight_clip: ClipperState
     scale_clip: ClipperState
     pts_clip: ClipperState
 
 
-def init_loss_state(device=None) -> LossState:
-    return LossState(*(init_clipper_state(device) for _ in TAP_NAMES))
+def init_loss_state(cfg: LossConfig | None = None, device=None) -> LossState:
+    hist = init_bin_histogram(sum(cfg.bit_cnt), device) \
+        if cfg is not None and cfg.bit_cnt else None
+    return LossState(hist, *(init_clipper_state(device) for _ in TAP_NAMES))
+
+
+def loss_state_to(state: LossState, device) -> LossState:
+    """The state on `device` (a checkpoint's is loaded on the CPU)."""
+    return LossState(
+        None if state.histogram is None else state.histogram.to(device),
+        *(type(c)(*(t.to(device) for t in c)) for c in state[1:]))
 
 
 def make_taps(device=None) -> dict:
@@ -77,17 +92,60 @@ def _pose_ramp(cfg: LossConfig, step: int) -> float:
 
 def compute_losses(cfg: LossConfig, gt: dict, out: dict, state: LossState,
                    step: int, taps: dict, sample_top_left=(0, 0)):
-    """Returns (total_loss, loss_dict). `taps` are the 0-d leaves whose
-    gradients report the observed activation-gradient norms."""
-    if cfg.sparse or cfg.bit_cnt is not None:
-        raise NotImplementedError('the sparse and binary (zebra) losses arrive '
-                                  'with their slices of the port')
-    loss_dict: dict[str, torch.Tensor] = {}
+    """Returns (total_loss, loss_dict, new_state): the histogram of the
+    binary-code loss moves here. `taps` are the 0-d leaves whose gradients
+    report the observed activation-gradient norms."""
+    if cfg.sparse:
+        loss_dict, new_hist = _sparse_losses(cfg, gt, out, step), \
+            state.histogram
+    else:
+        loss_dict, new_hist = _dense_losses(cfg, gt, out, state, step, taps,
+                                            sample_top_left)
+    weights_cfg = {'loss_noc': cfg.w_loss_noc,
+                   'loss_noc_bin': cfg.w_loss_noc_bin,
+                   'loss_seg': cfg.w_loss_seg, 'loss_pose': cfg.w_loss_pose,
+                   'loss_kpts': cfg.w_loss_kpts}
+    total = sum(v * weights_cfg[k] for k, v in loss_dict.items()
+                if weights_cfg.get(k, 0) > 0)
+    return total, loss_dict, state._replace(histogram=new_hist)
+
+
+def _sparse_losses(cfg: LossConfig, gt: dict, out: dict, step: int) -> dict:
+    """The keypoint Laplace NLL against the best pose's projections, and
+    the LC loss on the keypoints with 1/std as their weights, ramped in
+    from the NLL."""
+    pts2d, pts2d_std = out['pts2d'], out['pts2d_std']
+    pose_best, K, pts3d = gt['pose_best'], gt['out_K'], gt['pts3d']
+    proj = project_apply(K, pts3d, *pose7_to_RT(pose_best))
+    loss_kpts = sparse_kpt_nll_loss(pts2d, pts2d_std, proj)
+    terms = {'loss_kpts': loss_kpts}
+    if cfg.w_loss_pose > 0:
+        lc = loss_cov_mixed(K, pose_best, pts3d, pts2d, 1.0 / pts2d_std, None,
+                            bbox_3d=gt['bbox_3d'], cov_2d=cfg.cov_2d)
+        f = _pose_ramp(cfg, step)
+        terms['loss_pose'] = f * lc.mean() + (1.0 - f) * loss_kpts
+    return terms
+
+
+def _dense_losses(cfg: LossConfig, gt: dict, out: dict, state: LossState,
+                  step: int, taps: dict, sample_top_left):
+    """The NOC L1 (continuous head) or the binary-code loss (Gray codes),
+    the segmentation loss, and the dense LC loss on the strided grid,
+    ramped in from the weight logits' segmentation loss. Returns
+    (terms, new histogram)."""
+    terms: dict[str, torch.Tensor] = {}
+    new_hist = state.histogram
     msk_noc, msk_vis = gt['msk_noc'], gt['msk_vis']           # (B, h, w)
-    noc_msked = out['xyz_noc'] * msk_noc[..., None]
-    loss_dict['loss_noc'] = torch.abs(noc_msked - gt['xyz_noc_tgt']).mean()
+    has_bin = cfg.bit_cnt is not None
+    if has_bin:
+        terms['loss_noc_bin'], new_hist = xyz_bin_loss(
+            out['xyz_noc_bin'], gt['xyz_noc_bin_tgt'], out['msk_vis_logits'],
+            state.histogram)
+    else:
+        noc_msked = out['xyz_noc'] * msk_noc[..., None]
+        terms['loss_noc'] = torch.abs(noc_msked - gt['xyz_noc_tgt']).mean()
     seg_fn = seg_l1_loss if cfg.seg_loss_type.lower() == 'l1' else seg_bce_loss
-    loss_dict['loss_seg'] = seg_fn(out['msk_vis_logits'], msk_vis[..., None])
+    terms['loss_seg'] = seg_fn(out['msk_vis_logits'], msk_vis[..., None])
 
     # the dense LC pose loss
     weight_logits = out['xyz_weight_logits']                  # (B, h, w, 2)
@@ -108,8 +166,21 @@ def compute_losses(cfg: LossConfig, gt: dict, out: dict, state: LossState,
     uv = gen_uv((h, w), device=weight_logits.device)[None].expand(B, h, w, 2)
     den_pts2d = _strided_grid(uv, s, top, left)
     den_inv_std2d = _strided_grid(weights_full, s, top, left)
-    den_pts3d = _strided_grid(out['xyz_noc'], s, top, left) \
-        * gt['noc_scale'][:, None, :]
+    if has_bin:
+        # the training decode with the GT's bits. As lc_tpu (and the
+        # reference) it decodes inside the GT's NOC mask, not the predicted
+        # visibility mask the reference also computes (lc_tpu's
+        # loss_fn.py:157)
+        den_pts3d = nn_out_to_xyz(
+            _strided_grid(out['xyz_noc_bin'], s, top, left), gt['noc_scale'],
+            raw_bits_gt=_strided_grid(gt['xyz_noc_bin_raw'].bool(), s, top,
+                                      left),
+            noc_mask=_strided_grid(msk_noc, s, top, left) > 0.5,
+            model_transform=gt.get('model_transform'), bit_cnt=cfg.bit_cnt,
+            black_background=cfg.black_background)
+    else:
+        den_pts3d = _strided_grid(out['xyz_noc'], s, top, left) \
+            * gt['noc_scale'][:, None, :]
     if cfg.clip_pts_grad:
         den_pts3d = grad_tap(den_pts3d, clip_threshold(state.pts_clip),
                              taps['pts'])
@@ -120,13 +191,8 @@ def compute_losses(cfg: LossConfig, gt: dict, out: dict, state: LossState,
     f = _pose_ramp(cfg, step)
     loss_weight_seg = seg_fn(weight_logits, msk_vis[..., None].expand(
         weight_logits.shape))
-    loss_dict['loss_pose'] = f * lc.mean() + (1.0 - f) * loss_weight_seg
-
-    weights_cfg = {'loss_noc': cfg.w_loss_noc, 'loss_seg': cfg.w_loss_seg,
-                   'loss_pose': cfg.w_loss_pose}
-    total = sum(v * weights_cfg[k] for k, v in loss_dict.items()
-                if weights_cfg.get(k, 0) > 0)
-    return total, loss_dict
+    terms['loss_pose'] = f * lc.mean() + (1.0 - f) * loss_weight_seg
+    return terms, new_hist
 
 
 def finalize_loss_state(state: LossState, tap_grads: dict,
@@ -140,4 +206,5 @@ def finalize_loss_state(state: LossState, tap_grads: dict,
     pt = update_clipper_state(state.pts_clip, tap_grads['pts'],
                               rel_thresh=2.0) if cfg.clip_pts_grad \
         else state.pts_clip
-    return LossState(weight_clip=ws, scale_clip=sc, pts_clip=pt)
+    return LossState(histogram=state.histogram, weight_clip=ws, scale_clip=sc,
+                     pts_clip=pt)

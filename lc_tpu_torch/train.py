@@ -4,6 +4,10 @@
         [--obj 1] [--name exp] [--ckpt path] [--resume] [--opts a.b=c ...]
         [--device cpu]
 
+Trains every family: CDPN dense NOC (glmo), zebra Gray codes (max_bit_cnt:
+zlmo, zsyn; with train_dataset_1 mixed in by ratio) and sparse keypoints
+(sparse_cnt: gsplmo, gspsyn).
+
 Epoch-based (cfg.train.num_epochs) or step-based (cfg.train.num_steps)
 loops, with periodic evaluation through harness.run_test and the best
 checkpoint chosen on add(-s)_0.10. Runs on CUDA unless --device cpu is
@@ -25,7 +29,7 @@ from torch.profiler import record_function
 
 from . import harness, resolve_device
 from .data.pipeline import device_preprocess
-from .loss.loss_fn import init_loss_state
+from .loss.loss_fn import init_loss_state, loss_state_to
 from .models import default_compute_dtype, set_compute_dtype
 from .models.weights import init_weights
 from .optim.factory import build_optimizer
@@ -43,10 +47,6 @@ def build_training(cfg, seed: int | None = None, device=None) -> dict:
     defaults to cfg.train.seed (42 when unset): one knob drives the loader's
     shuffle, the model's init and the per-step generators."""
     device = resolve_device(device)
-    if cfg.get('max_bit_cnt', 0) > 0 or cfg.get('sparse_cnt', 0) > 3:
-        raise NotImplementedError('training the zebra (max_bit_cnt) and '
-                                  'sparse (sparse_cnt) families is not '
-                                  'ported yet; their inference is')
     if seed is None:
         seed = int(cfg.train.get('seed', 42))
     train_set, train_loader = harness.make_datasets(cfg, train=True, seed=seed)
@@ -59,7 +59,8 @@ def build_training(cfg, seed: int | None = None, device=None) -> dict:
         evaluator = harness.get_evaluator(cfg, device=device)
     else:
         test_set = test_loader = evaluator = None
-    model = harness.build_model_from_cfg(cfg)
+    bit_cnt = train_set.bit_cnt
+    model = harness.build_model_from_cfg(cfg, sum(bit_cnt) if bit_cnt else 0)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = set_compute_dtype(model.to(device), default_compute_dtype(device))
 
@@ -68,11 +69,12 @@ def build_training(cfg, seed: int | None = None, device=None) -> dict:
     else:
         steps_per_epoch = len(train_loader)
         num_steps = cfg.train.num_epochs * steps_per_epoch
-    loss_cfg = harness.make_loss_config(cfg, steps_per_epoch)
+    loss_cfg = harness.make_loss_config(cfg, steps_per_epoch, bit_cnt)
     optimizer, scheduler = build_optimizer(model.parameters(), cfg.optimizer,
                                            cfg.scheduler, num_steps)
     return dict(model=model, optimizer=optimizer, scheduler=scheduler,
-                loss_cfg=loss_cfg, loss_state=init_loss_state(device),
+                loss_cfg=loss_cfg,
+                loss_state=init_loss_state(loss_cfg, device),
                 train_set=train_set, train_loader=train_loader,
                 test_set=test_set, test_loader=test_loader,
                 evaluator=evaluator, seed=seed, device=device,
@@ -130,8 +132,7 @@ def train(args, cfg, outdir: str, device=None):
         model.load_state_dict(state['model'])
         optimizer.load_state_dict(state['optimizer'])
         scheduler.load_state_dict(state['scheduler'])
-        loss_state = type(loss_state)(*(
-            type(c)(*(t.to(device) for t in c)) for c in state['loss_state']))
+        loss_state = loss_state_to(state['loss_state'], device)
         seeding.restore_random_state(aux['random_state'])
         start_step = int(aux['step'])
         logger.info('resumed from step %d', start_step)

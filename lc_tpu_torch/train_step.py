@@ -5,7 +5,8 @@ The model's forward in train mode (bf16 convolutions on the card, as in
 inference), the on-the-fly targets, every loss including the LC covariance
 loss with the gradient taps, backward, the optimizer and scheduler steps,
 and the clip thresholds updated from the taps' gradients. Eager: each call
-is one step. Its stages are torch.profiler ranges (forward, targets_losses,
+is one step; the loss state (the binary-code histogram and the clip
+thresholds) goes in and comes back. Its stages are torch.profiler ranges (forward, targets_losses,
 backward, optimizer; train.step_inputs adds h2d and preprocess), from which
 chip_smoke.py reads the step's breakdown. Data parallelism across cards is queued (ROADMAP A12).
 """
@@ -22,15 +23,17 @@ from .loss.targets import annots_on_the_fly
 def forward_losses(model, loss_cfg: LossConfig, loss_state: LossState,
                    gt: dict, step: int, top_left, taps: dict, *,
                    sym_aware_start: int = 0):
-    """The forward half of a step: (total, loss_dict, gt with the targets)."""
+    """The forward half of a step: (total, loss_dict, the loss state with
+    this step's histogram; its clip thresholds move after backward)."""
     with record_function('forward'):
         out = model(gt['img_in'])
     with record_function('targets_losses'):
-        gt = dict(gt, **annots_on_the_fly(gt, out, step=step,
-                                          sym_aware_start=sym_aware_start))
-        total, loss_dict = compute_losses(loss_cfg, gt, out, loss_state, step,
-                                          taps, sample_top_left=top_left)
-    return total, loss_dict, gt
+        gt = dict(gt, **annots_on_the_fly(
+            gt, out, step=step, sym_aware_start=sym_aware_start,
+            bit_cnt=loss_cfg.bit_cnt,
+            black_background=loss_cfg.black_background))
+        return compute_losses(loss_cfg, gt, out, loss_state, step, taps,
+                              sample_top_left=top_left)
 
 
 def global_grad_norm(params) -> torch.Tensor:
@@ -48,9 +51,9 @@ def train_step(model, optimizer, scheduler, loss_cfg: LossConfig,
     device = gt['img_in'].device
     taps = make_taps(device)
     optimizer.zero_grad(set_to_none=True)
-    total, loss_dict, _ = forward_losses(model, loss_cfg, loss_state, gt, step,
-                                         top_left, taps,
-                                         sym_aware_start=sym_aware_start)
+    total, loss_dict, loss_state = forward_losses(
+        model, loss_cfg, loss_state, gt, step, top_left, taps,
+        sym_aware_start=sym_aware_start)
     with record_function('backward'):
         total.backward()
     with record_function('optimizer'):

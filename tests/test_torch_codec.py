@@ -95,6 +95,25 @@ def test_nn_out_to_xyz_binary(with_transform):
 
 
 def test_nn_out_to_xyz_training_decode_not_ported():
-    with pytest.raises(NotImplementedError, match='training'):
-        t_nn_out_to_xyz(torch.zeros(1, 2, 2, 6), torch.ones(1, 3),
-                        bit_cnt=(2, 2, 2))
+    """The training decode (inference=False, named when it still raised)
+    is ported: with the GT's plain bits and mask it gives lc_tpu's values,
+    a random rigid model_transform included, to atol 1e-4 mm."""
+    rng = np.random.default_rng(9)
+    B, bit_cnt = 2, (2, 2, 2)
+    logits = (rng.choice([-1.0, 1.0], (B, 4, 4, 6))
+              * rng.uniform(0.05, 3.0, (B, 4, 4, 6))).astype(np.float32)
+    raw = rng.random((B, 4, 4, 6)) < 0.5
+    mask = rng.random((B, 4, 4)) < 0.7
+    scale = rng.uniform(20, 60, (B, 3)).astype(np.float32)
+    xform = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    xform[:, :3, :3] = sciR.random(B, random_state=5).as_matrix()
+    xform[:, :3, 3] = rng.uniform(-10, 10, (B, 3))
+    kw = dict(bit_cnt=bit_cnt, black_background=True)
+    j = np.asarray(j_nn_out_to_xyz(
+        jnp.asarray(logits), jnp.asarray(scale), raw_bits_gt=jnp.asarray(raw),
+        noc_mask=jnp.asarray(mask), model_transform=jnp.asarray(xform), **kw))
+    t = t_nn_out_to_xyz(
+        torch.from_numpy(logits), torch.from_numpy(scale),
+        raw_bits_gt=torch.from_numpy(raw), noc_mask=torch.from_numpy(mask),
+        model_transform=torch.from_numpy(xform), **kw).numpy()
+    np.testing.assert_allclose(t, j, atol=1e-4)
