@@ -60,7 +60,21 @@ Phases, each of which fails the run on error:
      after step 3, a run resumed from the step-3 checkpoint that must start
      from its stored histogram and clip thresholds, and the test CLI on
      model_final;
-  8. one JSON line of kernel numbers, the card line, and the final
+     With the glmo tree also: the host loader alone, threads (Loader) and
+     processes (MPLoader), here and on the zsyn and gspsyn trees; the train
+     CLI with dataloader.multiprocess (MPLoader), resumed from step 3 to
+     the uninterrupted run's step-6 loss; the test CLI on a .ckpt written
+     in lc_tpu's format (pickled envelope, flax msgpack, written by this
+     script's own packer) against the same weights as a .pth (the same CSV
+     rows); zsyn's test CLI with eval_bop_scores (BOP'19 mssd/mspd ARs);
+  8. after the main paths, int8 inference on glmo and zlmo (phase_int8):
+     the torch._int_mm accumulators of a stem at odd size, 3x3, dilated,
+     deconvolution and head layers against the plain version (exact), the
+     int8 forward (dynamic and static) within lc_tpu's bf16 yardstick,
+     forward ms against bf16, and harness.run_test with int8_inference in
+     both modes; every stage breakdown also reads RANSAC's device
+     operations and largest allocations;
+  9. one JSON line of kernel numbers, the card line, and the final
      {"ok": true, "device": ...} line.
 Imports torch, numpy, scipy, the standard library and the port only. Exits
 non-zero without a CUDA device, or outside a checkout of the repository.
@@ -273,12 +287,16 @@ def lm_agreement(out, ref, args, keep) -> dict:
     inputs `args`, over the problems in `keep`: the largest translation
     error, the least rotation cosine, the largest cost error relative to
     the plain version's cost beyond cost_floor, whether the invalid flags
-    are equal, the largest error of any pose entry."""
+    are equal, the largest error of any pose entry (translation in mm,
+    quaternions at unit norm)."""
     import torch
     t, qd = pose_gap(out.pose7, ref.pose7)
-    aligned = out.pose7.clone()
-    signs = torch.sign((out.pose7[:, :4] * ref.pose7[:, :4]).sum(-1))
-    aligned[:, :4] *= torch.where(signs < 0, -1.0, 1.0)[:, None]   # q ~ -q
+    # the quaternions at unit norm (RANSAC's refined ones are not), q ~ -q
+    aligned, ref7 = out.pose7.clone(), ref.pose7.clone()
+    for p in (aligned, ref7):
+        p[:, :4] /= p[:, :4].norm(dim=-1, keepdim=True).clamp(min=1e-30)
+    signs = torch.sign((aligned[:, :4] * ref7[:, :4]).sum(-1))
+    aligned[:, :4] *= torch.where(signs < 0, -1.0, 1.0)[:, None]
     rel = ((out.cost - ref.cost).abs() - cost_floor(args)).clamp(min=0) \
         / ref.cost.abs().clamp(min=1e-30)
     pick = lambda x, empty: x[keep] if bool(keep.any()) else empty  # noqa
@@ -287,7 +305,7 @@ def lm_agreement(out, ref, args, keep) -> dict:
         min_quat_dot=float(pick(qd, torch.ones(1)).min()),
         max_cost_rel_err=float(pick(rel, torch.zeros(1)).max()),
         invalid_equal=bool((out.invalid == ref.invalid)[keep].all()),
-        max_abs_err=float(pick((aligned - ref.pose7).abs().amax(-1),
+        max_abs_err=float(pick((aligned - ref7).abs().amax(-1),
                                torch.zeros(1)).max()),
         n_iter_kernel=int(out.n_iter.sum()), n_iter_plain=int(ref.n_iter.sum()))
 
@@ -341,9 +359,19 @@ def referee(args, kw, out, ref, problems) -> list:
     f32 runs', and `farthest` marks a kernel farther than all of them, which
     for a kernel computing the plain version's function happens by chance
     in about 1 of 10 such problems (10 float32 solvers, one of them
-    farthest). One row per problem."""
+    farthest). One row per problem.
+
+    Every run is judged on its last iterate (fallback_to_init off): with
+    fallback_to_init an invalid solve returns its initial pose, equal in
+    every run, while its cost is that of the iterate where it stopped, so
+    the initial pose would make such a problem look determined whatever
+    the runs' trajectories did."""
     import torch
+    from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
     from lc_tpu_torch.pnp.solver import lm_refine
+    if kw.get('fallback_to_init', True):
+        kw = dict(kw, fallback_to_init=False)
+        out, ref = lm_refine_cuda(*args, **kw), lm_refine(*args, **kw)
     a64 = [a.double() if a is not None and a.is_floating_point() else a
            for a in args]
     r64 = lm_refine(*a64, **kw)
@@ -782,18 +810,13 @@ def bias_visibility(model, batch, share, path, device) -> float:
     return shift
 
 
-def phase_path(tag, path, device, seed: int) -> tuple:
-    """A main path: harness.run_test on N_BATCHES in-memory batches at the
-    path's widths, with seeded random weights, the kernel counts zeroed just
-    before and read just after; then its stage breakdown on one more run of
-    the last batch. The zebra head's visibility logit is first shifted so
-    that its mask keeps the object's share of the grid. Returns the report,
-    the path's own LM inputs on the last batch (path_lm_inputs), the last
-    batch and the model."""
-    import torch
-    from lc_tpu_torch import harness
+def path_setup(tag, path, device, seed: int) -> tuple:
+    """A path's N_BATCHES in-memory batches at its widths, its network
+    with seeded random weights (the zebra head's visibility logit shifted
+    so that its mask keeps the object's share of the grid), the dataset
+    attributes and evaluator run_test takes, and the report so far."""
     from lc_tpu_torch.data import synthetic
-    from lc_tpu_torch.data.pipeline import collate, device_preprocess
+    from lc_tpu_torch.data.pipeline import collate
     from lc_tpu_torch.eval.evaluator import Evaluator
     bs = path['batch_size']
     t0 = time.perf_counter()
@@ -817,6 +840,22 @@ def phase_path(tag, path, device, seed: int) -> tuple:
                                        bit_cnt=path_bit_cnt(path)))
     ev = Evaluator(es['gts'], es['models'], es['models_info'],
                    symmetric_obj_ids=es['symmetric_obj_ids'], device=device)
+    return batches, model, dataset, ev, rep
+
+
+def phase_path(tag, path, device, seed: int) -> tuple:
+    """A main path: harness.run_test on N_BATCHES in-memory batches at the
+    path's widths, with seeded random weights, the kernel counts zeroed just
+    before and read just after; then its stage breakdown on one more run of
+    the last batch. The zebra head's visibility logit is first shifted so
+    that its mask keeps the object's share of the grid. Returns the report,
+    the path's own LM inputs on the last batch (path_lm_inputs), the last
+    batch and the model."""
+    import torch
+    from lc_tpu_torch import harness
+    from lc_tpu_torch.data.pipeline import device_preprocess
+    bs = path['batch_size']
+    batches, model, dataset, ev, rep = path_setup(tag, path, device, seed)
 
     zero_kernel_counts()
     t0 = time.perf_counter()
@@ -883,7 +922,9 @@ def stage_breakdown(model, batch, device, path, out=None) -> dict:
     """One more batch of a main path, stage by stage (the calls
     harness.run_test and inference.solve_pnp_dense / solve_pnp_sparse make):
     host clock around each stage with the device synchronized, in ms, the
-    device memory RANSAC's stages allocate at their peak, and the points
+    device memory RANSAC's stages allocate at their peak, its largest
+    allocations and its device operations (kernels, copies, memsets) per
+    batch, and the points
     RANSAC and the final refine take per problem (mean and least). Then the
     same batch under torch.profiler: device-busy time (sum of kernel times;
     one stream, so kernels do not overlap), kernel count, and the busy share
@@ -955,6 +996,8 @@ def stage_breakdown(model, batch, device, path, out=None) -> dict:
     args, kw = ransac_call['args']
     stages['ransac_largest_allocations'] = largest_allocations(
         lambda: ransac_pnp(*args, **kw))
+    stages['ransac_device_ops'] = device_ops_per_call(
+        lambda: ransac_pnp(*args, **kw), reps=1)
 
     def untimed(name, fn):
         return fn()
@@ -981,10 +1024,13 @@ def stage_breakdown(model, batch, device, path, out=None) -> dict:
 def largest_allocations(fn, k: int = 4) -> list:
     """The k largest device allocations fn makes, in MiB, each with the
     innermost lc_tpu_torch frame that made it (the allocator's history,
-    recorded for this call only)."""
+    recorded for this call only). Python frames only: symbolizing C++
+    frames starts one addr2line process per library, which torch keeps
+    for the rest of the run."""
     import torch
     torch.cuda.synchronize()
-    torch.cuda.memory._record_memory_history(max_entries=100000)
+    torch.cuda.memory._record_memory_history(stacks='python',
+                                             max_entries=100000)
     try:
         fn()
         torch.cuda.synchronize()
@@ -1031,6 +1077,168 @@ def phase_zebra(device) -> tuple[dict, dict]:
 def phase_sparse(device) -> tuple[dict, dict]:
     """gsplmo's main path."""
     return phase_path('sparse', GSPLMO, device, seed=13)[:2]
+
+
+# int8 inference: the layers whose _int_mm accumulators are held to the
+# plain version on the path's own activations (the stem on an odd-size crop
+# of the input, where lc_tpu quantizes it too), and the convolutions int8
+# takes at the even 256² input (README's counts of lc_tpu: all but the stem)
+INT8_LAYERS = {
+    'glmo': {'stem_odd': 'net.backbone.conv1',
+             'conv3x3': 'net.backbone.layer1.0.conv1',
+             'deconv': 'net.decoder.features.0',
+             'head': 'net.decoder.out_layer'},
+    'zlmo': {'stem_odd': 'net.resnet.resnet_layer_1.0',
+             'conv3x3': 'net.aspp.upsample_2.3',
+             'aspp_dilated': 'net.aspp.conv_3x3_1',
+             'deconv': 'net.aspp.upsample_1.0',
+             'head': 'net.aspp.conv_1x1_4'}}
+INT8_CONVS = {'glmo': 43, 'zlmo': 48}
+PEAK_INT8_OPS = 1979e12
+
+
+def rel_rms(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(((a - b) ** 2).mean().sqrt()
+                 / ((a ** 2).mean().sqrt() + 1e-30))
+
+
+def int8_accumulators(model, x, layers: dict) -> dict:
+    """Each named layer's int32 accumulators through torch._int_mm against
+    the plain version (the float64 convolution of the same int8 values) on
+    its own input in the bf16 forward of x: exact. Both timed, beside the
+    layer's bf16 convolution (cuDNN)."""
+    import torch
+    from lc_tpu_torch.models import quant
+    from lc_tpu_torch.models.layers import Deconv2x
+    mods = dict(model.named_modules())
+    inputs, hooks = {}, []
+    for key, name in layers.items():
+        if key != 'stem_odd':
+            hooks.append(mods[name].register_forward_pre_hook(
+                lambda m, a, key=key: inputs.__setitem__(key, a[0])))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    nchw = x.permute(0, 3, 1, 2)
+    inputs['stem_odd'] = nchw[:, :, :nchw.shape[2] - 1, :nchw.shape[3] - 1]
+    out = {}
+    with torch.no_grad():
+        for key, name in layers.items():
+            m, xin = mods[name], inputs[key]
+            xq, _ = quant.quantize_tensor(xin, dim=(1, 2, 3), keepdim=True)
+            if isinstance(m, Deconv2x):
+                w = m.weight.transpose(0, 1).flip(2, 3)
+                xq, geom = quant.deconv_input(xq), ((1, 1), (0, 0), (1, 1))
+            else:
+                w, geom = m.weight, (m.stride, m.padding, m.dilation)
+            check(quant.quantizable(m, xin), f'{name} is not quantizable')
+            wq, _ = quant.quantize_tensor(w, dim=(1, 2, 3))
+            acc = quant.int8_conv_accumulate(xq, wq, *geom)
+            ref = quant.int8_conv_reference(xq, wq, *geom)
+            check(acc.dtype == torch.int32 and torch.equal(acc, ref),
+                  f'{name}: _int_mm accumulators differ from the plain '
+                  f'version by {int((acc - ref).abs().max())}')
+            M = acc.numel() // acc.shape[1]
+            K, N = wq[0].numel(), wq.shape[0]
+            out[key] = dict(
+                module=name, M=M, K=K, N=N, max_abs_err=0.0,
+                ms=time_ms(lambda: quant.int8_conv_accumulate(xq, wq, *geom),
+                           reps=5),
+                plain_ms=time_ms(lambda: quant.int8_conv_reference(
+                    xq, wq, *geom), reps=2, warmup=1),
+                bf16_conv_ms=time_ms(lambda: m(xin), reps=5),
+                bound_ms=2 * M * K * N / PEAK_INT8_OPS * 1e3)
+    return out
+
+
+def phase_int8(tag, path, device, seed: int) -> dict:
+    """int8 inference at the path's widths and batch (random weights):
+    the _int_mm accumulators of its layers against the plain version; the
+    int8 forward (dynamic, and static scales calibrated on the batch)
+    against f32 within lc_tpu's yardstick, the bf16 forward's own error
+    (tests/test_quant.py: dynamic 6x + 5e-3, static 12x + 1e-2, the weight
+    scale in log domain); forward ms of bf16, int8 dynamic and static; then
+    harness.run_test with int8_inference in both modes on N_BATCHES
+    batches, counts zeroed before and read after."""
+    import torch
+    from lc_tpu_torch import harness
+    from lc_tpu_torch.data.pipeline import device_preprocess
+    from lc_tpu_torch.models import quant, set_compute_dtype
+    batches, model, dataset, ev, rep = path_setup(
+        f'int8_{tag}', path, device, seed)
+    model = set_compute_dtype(model.to(device).eval(), torch.bfloat16)
+    x = device_preprocess(h2d(batches[0], device),
+                          net_input_wh=path['net_input_wh'])['img_in']
+    rep['accumulators'] = int8_accumulators(model, x, INT8_LAYERS[tag])
+    log(f'[int8_{tag}] accumulators: {json.dumps(rep["accumulators"])}')
+
+    with torch.no_grad():
+        outs = {'f32': set_compute_dtype(model, torch.float32)(x)}
+        set_compute_dtype(model, torch.bfloat16)
+        scales = quant.calibrate_act_scales(model, [x])
+
+        def fwd(mode):
+            if mode == 'bf16':
+                return model(x)
+            with quant.quantized_int8(model, act_scales=None
+                                      if mode == 'dynamic' else scales):
+                return model(x)
+        for mode in ('bf16', 'dynamic', 'static'):
+            outs[mode] = fwd(mode)
+        check(len(scales) == INT8_CONVS[tag],
+              f'{tag}: int8 takes {len(scales)} convolutions')
+        errs = {}
+        for k, f in outs['f32'].items():
+            e = {}
+            for mode in ('bf16', 'dynamic', 'static'):
+                q = outs[mode][k].float()
+                check(bool(torch.isfinite(q).all()), f'{tag} {mode}: {k}')
+                e[mode] = float((torch.log(f) - torch.log(q)).pow(2).mean()
+                                .sqrt()) if k == 'xyz_weights_scale' \
+                    else rel_rms(f, q)
+            if k == 'xyz_weights_scale':
+                ok = all(e[m] < 10 * e['bf16'] + 0.1
+                         for m in ('dynamic', 'static'))
+            else:
+                ok = (e['dynamic'] < 6 * e['bf16'] + 5e-3
+                      and e['static'] < 12 * e['bf16'] + 1e-2)
+            check(ok, f'{tag}: int8 outside the bf16 yardstick on {k}: {e}')
+            errs[k] = e
+        rep['error_vs_f32'] = errs
+        rep['forward_ms'] = {mode: median_call_ms(lambda: fwd(mode),
+                                                  windows=3, reps=5)
+                             for mode in ('bf16', 'dynamic', 'static')}
+    rep['convs_int8'] = len(scales)
+    log(f'[int8_{tag}] {json.dumps({k: rep[k] for k in ("error_vs_f32", "forward_ms", "convs_int8")})}')
+
+    final = final_solver(path)
+    for mode in ('dynamic', 'static'):
+        cfg = path_cfg(path)
+        cfg.merge_from_dict({'int8_inference': True,
+                             'int8_act_scales': mode})
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        res = harness.run_test(cfg, model, batches, dataset, ev,
+                               device=device)
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        errors = res[final]['errors']
+        check(len(errors) == path['batch_size'] * N_BATCHES and all(
+            np.all(np.isfinite(e['t_est'])) for e in errors),
+            f'int8 {tag} {mode}: not a finite pose for every crop')
+        check(counts['lm_refine'] == 3 * N_BATCHES,
+              f'int8 {tag} {mode}: LM kernel launched '
+              f'{counts["lm_refine"]} times')
+        rep[f'run_test_{mode}'] = dict(
+            crops_per_s=1.0 / errors[0]['time'], wall_s=wall,
+            launches=counts, add_s_0_10=res[final]['avg_score'])
+        log(f'[int8_{tag}] run_test {mode}: '
+            f'{json.dumps(rep[f"run_test_{mode}"])}')
+    return rep
 
 
 def phase_path_oracle(tag, path, device, limit: float) -> tuple[dict, dict]:
@@ -1590,16 +1798,12 @@ def phase_cli(device) -> dict:
         cfg_path = os.path.join(tmp, 'glmo_syn.yaml')
         with open(cfg_path, 'w') as f:
             yaml.safe_dump(cfg.to_dict(), f)
-        # the host loader alone (threads over PNG decode, cv2 warps, z_crop
-        # expansion), three epochs of one batch each
-        from lc_tpu_torch import harness
+        # the host loader alone (PNG decode, cv2 warps, z_crop expansion):
+        # the threaded Loader and MPLoader, on the train CLI's own stream
         from lc_tpu_torch.data import native
-        _, loader = harness.make_datasets(cfg, train=True, seed=0)
-        t0 = time.perf_counter()
-        n_loaded = sum(len(b['obj_id']) for _ in range(3) for b in loader)
-        loader_rate = n_loaded / (time.perf_counter() - t0)
-        log(f'[cli] host loader alone: {loader_rate:.1f} crops/s with '
-            f'{cfg.dataloader.num_workers} threads, native z_crop library '
+        loaders = loader_rates(cfg, 'glmo')
+        loader_rate = loaders['threads']['crops_per_s']
+        log(f'[cli] native z_crop library '
             f'{"used" if native.available() else "absent"}')
         out = os.path.join(tmp, 'out')
         dev_args = [] if device.type == 'cuda' else ['--device', 'cpu']
@@ -1629,9 +1833,198 @@ def phase_cli(device) -> dict:
                             + dev_args)
         test_wall = time.perf_counter() - t0
         check(len(res['weighted']['errors']) == 8, 'test CLI: not 8 poses')
+        mp = cli_train_mploader(cfg_path, tmp, lines, dev_args)
+        ckpt = cli_test_lc_tpu_ckpt(cfg_path, tmp, dev_args)
     rep = dict(train_wall_s=wall, launches=counts, metrics=lines,
-               test_wall_s=test_wall, host_loader_crops_per_s=loader_rate)
+               test_wall_s=test_wall, host_loader_crops_per_s=loader_rate,
+               loaders=loaders, mploader_train_cli=mp, lc_tpu_ckpt=ckpt)
     log(f'[cli] {json.dumps(rep)}')
+    return rep
+
+
+def process_cpu_s() -> float:
+    """CPU seconds this process (all its threads) has used."""
+    import resource
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return r.ru_utime + r.ru_stime
+
+
+def loader_rates(cfg, tag: str) -> dict:
+    """The host loader alone on cfg's training split (train_dataset_1
+    left out), as the train loop streams it (train.endless_batches): the
+    threaded Loader and MPLoader, each on dataloader.num_workers workers;
+    the first batch (the pool's start) timed apart from the next n = 3 x
+    num_workers (both keep about num_workers batches in flight, so the
+    first n / 3 arrive with the first wave), and the cores this process
+    kept busy over those n (the loader's threads, or MPLoader's
+    unpickling: its workers are other processes)."""
+    import copy
+    from lc_tpu_torch import harness
+    from lc_tpu_torch.train import endless_batches
+    cfg = copy.deepcopy(cfg)
+    cfg.pop('train_dataset_1', None)
+    rep = dict(cpu_count=os.cpu_count(),
+               usable_cpus=len(os.sched_getaffinity(0)),
+               workers=cfg.dataloader.get('num_workers', 4))
+    n = 3 * rep['workers']
+    for name, mp in (('threads', False), ('processes', True)):
+        cfg.dataloader['multiprocess'] = mp
+        _, loader = harness.make_datasets(cfg, train=True, seed=0)
+        try:
+            t0 = time.perf_counter()
+            it = endless_batches(loader, 0)
+            next(it)
+            first = time.perf_counter() - t0
+            cpu0, t0 = process_cpu_s(), time.perf_counter()
+            crops = sum(len(next(it)['obj_id']) for _ in range(n))
+            wall = time.perf_counter() - t0
+            rep[name] = dict(
+                first_batch_s=first, crops_per_s=crops / wall,
+                cores_busy_in_this_process=(process_cpu_s() - cpu0) / wall)
+        finally:
+            if mp:
+                loader.close()
+    log(f'[loader_{tag}] {json.dumps(rep)}')
+    return rep
+
+
+def cli_train_mploader(cfg_path: str, tmp: str, threaded: list,
+                       dev_args: list) -> dict:
+    """The train CLI with --opts dataloader.multiprocess=true (MPLoader)
+    on the glmo tree: six steps, an evaluation after step 3, counts zeroed
+    before and read after; then a run resumed from the step-3 checkpoint,
+    whose step-6 loss must match the uninterrupted run's (rtol 1e-4; the
+    same stream, the card's sums in another order); the step losses beside
+    the threaded Loader's run of the same stream (`threaded`)."""
+    from lc_tpu_torch import train as train_cli
+    opts = ['--opts', 'dataloader.multiprocess=true']
+    out = os.path.join(tmp, 'out_mp')
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    train_cli.main(['--config', cfg_path, '--output', out] + opts + dev_args)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    exp = os.path.join(out, 'glmo-1')
+    with open(os.path.join(exp, 'metrics.jsonl')) as f:
+        lines = [json.loads(x) for x in f]
+    check([m['step'] for m in lines] == [1, TRAIN_STEPS]
+          and all(np.isfinite(v) for m in lines for v in m.values()),
+          f'MPLoader train CLI metrics: {lines}')
+    check(counts['shear_x'] == 6 * TRAIN_STEPS and counts['lm_refine'] == 3,
+          f'MPLoader train CLI launches: {counts}')
+    best = [f for f in os.listdir(exp) if f.startswith('model_best_3_')]
+    check(len(best) == 1, 'MPLoader train CLI: no step-3 checkpoint')
+    out2 = os.path.join(tmp, 'resumed_mp')
+    train_cli.main(['--config', cfg_path, '--output', out2, '--ckpt',
+                    os.path.join(exp, best[0])] + opts + dev_args)
+    with open(os.path.join(out2, 'glmo-1', 'metrics.jsonl')) as f:
+        resumed = [json.loads(x) for x in f]
+    a, b = resumed[-1]['loss'], lines[-1]['loss']
+    check(resumed[-1]['step'] == TRAIN_STEPS
+          and abs(a - b) <= 1e-4 * max(abs(b), 1.0),
+          f'MPLoader resume: step-6 loss {a} against {b}')
+    rep = dict(train_wall_s=wall, launches=counts, metrics=lines,
+               resumed_vs_uninterrupted_loss=a - b,
+               vs_threaded_loss={m['step']: m['loss'] - t['loss']
+                                 for m, t in zip(lines, threaded)})
+    log(f'[cli_mploader] {json.dumps(rep)}')
+    return rep
+
+
+def msgpack_pack(obj) -> bytes:
+    """msgpack of dicts, lists, str, bytes, ints, floats, None and bools,
+    with numpy arrays as flax's ext type 1 (shape, dtype name, C-order
+    bytes): the encoding of flax.serialization.to_bytes for a tree of
+    arrays, written here so that this script needs neither flax nor the
+    msgpack package."""
+    import struct
+    out = bytearray()
+
+    def size(n, fix, fix_max, *codes):
+        if fix is not None and n <= fix_max:
+            out.append(fix | n)
+            return
+        for code, fmt in zip(codes, ('>B', '>H', '>I')):
+            if code is not None and n < 256 ** struct.calcsize(fmt):
+                out.extend(bytes([code]) + struct.pack(fmt, n))
+                return
+
+    def pack(x):
+        if x is None or isinstance(x, bool):
+            out.append({None: 0xc0, False: 0xc2, True: 0xc3}[x])
+        elif isinstance(x, int):
+            out.extend(bytes([x]) if 0 <= x < 128
+                       else b'\xd3' + struct.pack('>q', x))
+        elif isinstance(x, float):
+            out.extend(b'\xcb' + struct.pack('>d', x))
+        elif isinstance(x, str):
+            b = x.encode()
+            size(len(b), 0xa0, 31, 0xd9, 0xda, 0xdb)
+            out.extend(b)
+        elif isinstance(x, (bytes, bytearray)):
+            size(len(x), None, 0, 0xc4, 0xc5, 0xc6)
+            out.extend(x)
+        elif isinstance(x, (list, tuple)):
+            size(len(x), 0x90, 15, None, 0xdc, 0xdd)
+            for v in x:
+                pack(v)
+        elif isinstance(x, dict):
+            size(len(x), 0x80, 15, None, 0xde, 0xdf)
+            for k, v in x.items():
+                pack(k)
+                pack(v)
+        elif isinstance(x, np.ndarray):
+            data = msgpack_pack([list(x.shape), x.dtype.name,
+                                 np.ascontiguousarray(x).tobytes()])
+            out.extend(b'\xc9' + struct.pack('>Ib', len(data), 1) + data)
+        else:
+            raise TypeError(type(x))
+    pack(obj)
+    return bytes(out)
+
+
+def cli_test_lc_tpu_ckpt(cfg_path: str, tmp: str, dev_args: list) -> dict:
+    """The test CLI on a .ckpt in lc_tpu's format (the pickled envelope
+    around flax msgpack that lc_tpu.train's finish() writes, a plain
+    {'params', 'batch_stats'} export of seeded glmo weights) and on the
+    same weights saved as a .pth, --deterministic, counts zeroed before
+    each and read after: the CSV rows must match (ids and score equal, R
+    and t within 1e-4 mm / 1e-6, the time column aside)."""
+    import pickle
+    import torch
+    from lc_tpu_torch import test as test_cli
+    from lc_tpu_torch.models.weights import (random_flax_variables,
+                                             state_dict_from_flax)
+    variables = random_flax_variables(seed=21)
+    paths = {'ckpt': os.path.join(tmp, 'lc_tpu_export.ckpt'),
+             'pth': os.path.join(tmp, 'same_weights.pth')}
+    with open(paths['ckpt'], 'wb') as f:
+        pickle.dump({'state': msgpack_pack(variables),
+                     'aux': {'step': -1}}, f)
+    torch.save(state_dict_from_flax(variables), paths['pth'])
+    rows, rep = {}, {}
+    for fmt, weight in paths.items():
+        out = os.path.join(tmp, f'test_{fmt}')
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        test_cli.main(['--weight', weight, '--config', cfg_path, '--output',
+                       out, '--obj', '1', '--deterministic'] + dev_args)
+        rep[f'{fmt}_wall_s'] = time.perf_counter() - t0
+        rep[f'{fmt}_launches'] = kernel_counts()
+        csv = [f for f in os.listdir(out) if f.endswith('.csv')]
+        with open(os.path.join(out, csv[0])) as f:
+            rows[fmt] = [line.strip().split(',') for line in f]
+    a, b = rows['ckpt'], rows['pth']
+    check(len(a) == len(b) == 8 and all(x[:4] == y[:4] for x, y in zip(a, b)),
+          'lc_tpu .ckpt and .pth test CLI rows differ in ids or scores')
+    num = lambda r, i: np.array([float(v) for v in r[i].split()])  # noqa: E731
+    dR = max(np.abs(num(x, 4) - num(y, 4)).max() for x, y in zip(a, b))
+    dt = max(np.abs(num(x, 5) - num(y, 5)).max() for x, y in zip(a, b))
+    check(dR <= 1e-6 and dt <= 1e-4,
+          f'lc_tpu .ckpt against .pth: R {dR}, t {dt} mm apart')
+    rep.update(rows=len(a), max_R_diff=float(dR), max_t_diff_mm=float(dt),
+               identical_rows=all(x[:6] == y[:6] for x, y in zip(a, b)))
+    log(f'[cli_lc_tpu_ckpt] {json.dumps(rep)}')
     return rep
 
 
@@ -1678,11 +2071,13 @@ def phase_cli_families(device) -> dict:
                 'max_bit_cnt', 0))).state_dict(), weight)
             log(f'[cli_{name}] generated {N_BATCHES * bs} frames in '
                 f'{time.perf_counter() - t0:.1f} s')
+            # BOP'19 scores on the symmetric object
+            bop = ['--opts', 'eval_bop_scores=true'] if name == 'zsyn' else []
             zero_kernel_counts()
             t0 = time.perf_counter()
             res = test_cli.main(['--weight', weight, '--config', cfg_path,
                                  '--output', os.path.join(tmp, f'out_{name}'),
-                                 '--obj', '1'] + dev_args)
+                                 '--obj', '1'] + bop + dev_args)
             wall = time.perf_counter() - t0
             counts = kernel_counts()
             solvers = {p.replace('_', '-') for p in cfg.pnp_solver.solvers}
@@ -1701,6 +2096,22 @@ def phase_cli_families(device) -> dict:
                              launches=counts, solvers=sorted(solvers),
                              add_s_0_10={k: v['avg_score']
                                          for k, v in res.items()})
+            if bop:
+                ar = {k: {key: v['per_obj_score'][1][key] for key in
+                          ('bop_mssd_ar', 'bop_mspd_ar')}
+                      for k, v in res.items()}
+                check(all(0 <= x <= 1 for d in ar.values()
+                          for x in d.values()), f'{name} BOP AR: {ar}')
+                # a random network's pose may lie far enough for f32 to
+                # overflow: its error is inf, a miss, as in lc_tpu
+                errs = [e for v in res.values() for e in v['errors']]
+                check(all(isinstance(e.get('mssd'), float)
+                          and isinstance(e.get('mspd'), float)
+                          for e in errs), f'{name}: mssd / mspd missing')
+                rep[name]['bop_ar'] = ar
+                rep[name]['bop_finite_errors'] = sum(
+                    bool(np.isfinite(e['mssd']) and np.isfinite(e['mspd']))
+                    for e in errs)
             log(f'[cli_{name}] {json.dumps(rep[name])}')
     return rep
 
@@ -1771,6 +2182,7 @@ def phase_cli_train_families(device) -> dict:
             _, loader = harness.make_datasets(cfg, train=True, seed=0)
             mixed = isinstance(loader, harness.RatioMixLoader)
             check(mixed == sym, f'{name}: RatioMixLoader {mixed}')
+            loaders = loader_rates(cfg, name)
 
             out = os.path.join(tmp, f'out_{name}')
             zero_kernel_counts()
@@ -1843,6 +2255,7 @@ def phase_cli_train_families(device) -> dict:
                       f'{name} test CLI: not 8 poses for {solver}')
             rep[name] = dict(
                 train_wall_s=wall, launches=counts, ratio_mix=mixed,
+                loaders=loaders,
                 metrics=lines, resumed_last=resumed[-1],
                 resumed_vs_uninterrupted_loss=resumed[-1]['loss']
                 - lines[-1]['loss'],
@@ -1855,17 +2268,95 @@ def phase_cli_train_families(device) -> dict:
     return rep
 
 
+def descendants(pid: int) -> list[int]:
+    """Every live process below `pid`, from /proc."""
+    children: dict[int, list[int]] = {}
+    for entry in os.listdir('/proc'):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f'/proc/{entry}/stat') as f:
+                fields = f.read().rsplit(')', 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] != 'Z':
+            children.setdefault(int(fields[1]), []).append(int(entry))
+    found, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        found += kids
+        todo += kids
+    return found
+
+
+def stop_children() -> list[str]:
+    """Stop every process this run started. MPLoader's pool is shut down
+    by its owner, but multiprocessing keeps its forkserver and resource
+    tracker alive until the interpreter exits: stop both and wait for them
+    (each in a thread, so a stuck one cannot hang the run), then kill and
+    reap whatever is still below this process. Returns those, described."""
+    import signal
+    import threading
+    from multiprocessing import forkserver, resource_tracker
+    for server in (forkserver._forkserver, resource_tracker._resource_tracker):
+        stopper = threading.Thread(target=server._stop, daemon=True)
+        stopper.start()
+        stopper.join(30)
+    left = descendants(os.getpid())
+    seen = [describe_process(pid) for pid in left]
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    for pid in left:
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:   # a grandchild: its own parent reaps it
+            pass
+    return seen
+
+
+def describe_process(pid: int) -> str:
+    """'pid (parent, state): command line', from /proc."""
+    try:
+        with open(f'/proc/{pid}/stat') as f:
+            fields = f.read().rsplit(')', 1)[1].split()
+        with open(f'/proc/{pid}/cmdline', 'rb') as f:
+            cmd = f.read().replace(b'\0', b' ').decode(errors='replace')
+    except OSError:
+        return f'{pid} (gone)'
+    return f'{pid} (parent {fields[1]}, {fields[0]}): {cmd.strip()[:160]}'
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port runs on the card',
               file=sys.stderr)
         return 1
+    try:
+        kernels, card = run_phases(torch)
+    finally:
+        killed = stop_children()
+        log(f'[teardown] forkserver and resource tracker stopped; other '
+            f'processes killed: {killed}')
+    print(json.dumps({'kernels': kernels}))
+    print(card)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(torch):
+    """Every phase; returns (the kernels line's entries, the card line)."""
     from lc_tpu_torch import cuda_build, resolve_device
     device = resolve_device('cuda')
     card = card_line()
     log(f'[setup] python {sys.version.split()[0]} torch {torch.__version__} '
-        f'cuda {torch.version.cuda} card {card}')
+        f'cuda {torch.version.cuda} card {card}; os.cpu_count() '
+        f'{os.cpu_count()}, usable CPUs {len(os.sched_getaffinity(0))}')
     t0 = time.perf_counter()
     cuda_build.build_all()
     log(f'[setup] kernels built in {time.perf_counter() - t0:.1f} s')
@@ -1892,6 +2383,11 @@ def main() -> int:
         lm_inputs.update(inputs)
         log(f'[phase] {tag} path: {time.perf_counter() - t0:.1f} s')
         log(f'[{tag}] {paths[tag]["crops_per_s"]:.1f} crops/s on {card}')
+    int8 = {}
+    for tag, path, seed in (('glmo', GLMO, 14), ('zlmo', ZLMO, 15)):
+        t0 = time.perf_counter()
+        int8[tag] = phase_int8(tag, path, device, seed)
+        log(f'[phase] int8 {tag}: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
     held = phase_lm_main_inputs(lm_inputs)
     log(f'[phase] LM kernel on the paths\' own inputs: '
@@ -1921,7 +2417,16 @@ def main() -> int:
     a = lm['a_final_refine']
     # B1: the inference paths, and the evaluations of the train CLIs
     launches = {tag: rep['lm_launches'] for tag, rep in paths.items()}
+    launches.update({f'int8_{tag}_{mode}':
+                     rep[f'run_test_{mode}']['launches']['lm_refine']
+                     for tag, rep in int8.items()
+                     for mode in ('dynamic', 'static')})
     launches['train_cli_glmo'] = cli['launches']['lm_refine']
+    launches['train_cli_glmo_mploader'] = \
+        cli['mploader_train_cli']['launches']['lm_refine']
+    launches.update({f'test_cli_glmo_{fmt}':
+                     cli['lc_tpu_ckpt'][f'{fmt}_launches']['lm_refine']
+                     for fmt in ('ckpt', 'pth')})
     launches.update({f'train_cli_{k}': v['launches']['lm_refine']
                      for k, v in cli_train.items()})
     kernels = [dict(
@@ -1939,6 +2444,8 @@ def main() -> int:
     shear_launches = {f'train_{tag}': rep['launches']['shear_x']
                       for tag, rep in trains.items()}
     shear_launches['train_cli_glmo'] = cli['launches']['shear_x']
+    shear_launches['train_cli_glmo_mploader'] = \
+        cli['mploader_train_cli']['launches']['shear_x']
     kernels.append(dict(
         name='shear_x', route='cuda', source='lc_tpu_torch/csrc/shear_x.cu',
         replaces='lc_tpu/ops/pallas_warp.py:53',
@@ -1949,12 +2456,7 @@ def main() -> int:
         ms=x['ms'], plain_ms=x['plain_ms'], bound_ms=x['bound_ms'],
         bound_by=x['bound_by'], library_ms=x['library_ms'],
         tolerance=dict(atol=SHEAR_ATOL), cases=shear))
-    print(json.dumps({'kernels': kernels}))
-    print(card)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
-    return 0
+    return kernels, card
 
 
 if __name__ == '__main__':

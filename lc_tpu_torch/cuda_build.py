@@ -73,7 +73,13 @@ def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every named source that is not built yet, one nvcc each, all
     started together. Returns {name: library path}."""
     started = {n: _start(n) for n in names}
-    return {n: _finish(n, out, job) for n, (out, job) in started.items()}
+    try:
+        return {n: _finish(n, out, job) for n, (out, job) in started.items()}
+    finally:   # after a failed build, stop the ones still compiling
+        for _, job in started.values():
+            if job is not None and job[0].poll() is None:
+                job[0].kill()
+                job[0].wait()
 
 
 def load(name: str) -> ctypes.CDLL:

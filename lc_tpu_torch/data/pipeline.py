@@ -452,12 +452,140 @@ class Loader:
                     f.cancel()
 
 
-class MPLoader:
-    """lc_tpu's process-pool loader: not ported yet (ROADMAP queue A)."""
+# The process-pool loader. Each worker builds one BOPDataset in its
+# initializer (the dataset holds module handles and does not pickle) and
+# returns collated numpy batches.
+_WORKER_DS = None
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError('MPLoader is not ported yet; the threaded '
-                                  'Loader serves dataloader.multiprocess=false')
+
+def _mp_init(cfg_dataset: dict, cfg_global: dict, train: bool):
+    global _WORKER_DS
+    from ..utils.config import Config
+    _WORKER_DS = BOPDataset(Config(cfg_dataset), Config(cfg_global),
+                            train=train)
+
+
+def _mp_make_batch(job) -> dict:
+    """One batch: job = (dataset indices, (seed, epoch, batch index), global
+    position of the first row). Every row draws from
+    default_rng((seed, epoch, i, global row)), as Loader's rows do."""
+    idxs, key, base = job
+    ds = _WORKER_DS
+    samples = []
+    for jj, idx in enumerate(idxs):
+        rng = np.random.default_rng(key + (base + jj,))
+        blob = ds.sample(int(idx), rng)
+        while blob is None:
+            blob = ds.sample(int(rng.integers(len(ds))), rng)
+        samples.append(blob)
+    return collate(samples)
+
+
+class MPLoader:
+    """Batches assembled in a pool of worker processes, free of the
+    interpreter lock (the reference's eight forked DataLoader workers).
+
+    The stream is the one Loader gives for the same seed: the order is
+    shuffled per epoch from (seed, epoch), the last partial batch dropped
+    in training, and each row drawn from (seed, epoch, i, global row), so a
+    batch is a pure function of its position and `endless(start)` resumes
+    bit-identically. process_index / process_count carve each global batch
+    into this process's contiguous slice, keyed on global rows.
+
+    The workers start from a fresh interpreter (forkserver), never by a fork
+    of the caller, which may hold CUDA state and threads; they get the two
+    configs as plain dicts. Up to max(prefetch, num_workers) batches are in
+    flight. close() stops the pool."""
+
+    def __init__(self, cfg_dataset, cfg_global, *, batch_size: int,
+                 train: bool = True, seed: int = 0, num_workers: int = 8,
+                 prefetch: int = 4, shuffle: bool | None = None,
+                 drop_last: bool | None = None, process_index: int = 0,
+                 process_count: int = 1):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self.ds = BOPDataset(cfg_dataset, cfg_global, train=train)
+        self.batch_size = batch_size
+        self.seed = seed
+        self.shuffle = train if shuffle is None else shuffle
+        self.drop_last = train if drop_last is None else drop_last
+        self.window = max(prefetch, num_workers, 1)
+        self.epoch = 0
+        self.process_index = process_index
+        self.process_count = process_count
+        if process_count > 1:
+            if batch_size % process_count:
+                raise ValueError(f'batch_size {batch_size} not divisible by '
+                                 f'{process_count} processes')
+            if not self.drop_last:
+                raise ValueError('sharded loading requires drop_last')
+        ctx = multiprocessing.get_context('forkserver')
+        ctx.set_forkserver_preload([__name__])
+        self._pool = ProcessPoolExecutor(
+            max_workers=max(num_workers, 1), mp_context=ctx,
+            initializer=_mp_init,
+            initargs=(_plain(cfg_dataset), _plain(cfg_global), train))
+
+    def _carve(self, idxs):
+        """(this process's slice of a global batch, its first global row)."""
+        if self.process_count <= 1:
+            return idxs, 0
+        per = len(idxs) // self.process_count
+        base = self.process_index * per
+        return idxs[base:base + per], base
+
+    def __len__(self):
+        n = len(self.ds)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def _jobs(self, epoch: int, first: int = 0):
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.default_rng((self.seed, epoch)).shuffle(order)
+        bs = self.batch_size
+        for i in range(first, len(self)):
+            local, base = self._carve(order[i * bs:(i + 1) * bs])
+            yield local, (self.seed, epoch, i), base
+
+    def _stream(self, jobs):
+        pending: collections.deque = collections.deque()
+        try:
+            for job in jobs:
+                pending.append(self._pool.submit(_mp_make_batch, job))
+                if len(pending) >= self.window:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
+        finally:
+            for f in pending:
+                f.cancel()
+
+    def __iter__(self):
+        """One epoch; the shuffle and every row's draws keyed on it."""
+        epoch, self.epoch = self.epoch, self.epoch + 1
+        return self._stream(self._jobs(epoch))
+
+    def endless(self, start: int = 0):
+        """The batches from global batch index `start` on, across epoch
+        boundaries with no pause at them."""
+        def jobs():
+            n = len(self)
+            if not n:
+                return
+            epoch, first = divmod(int(start), n)
+            while True:
+                yield from self._jobs(epoch, first)
+                epoch, first = epoch + 1, 0
+        return self._stream(jobs())
+
+    def close(self):
+        """Cancel queued batches and stop the worker processes."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _plain(cfg):
+    return cfg.to_dict() if hasattr(cfg, 'to_dict') else dict(cfg)
 
 
 def device_preprocess(batch: dict, generator: torch.Generator | None = None, *,

@@ -45,6 +45,44 @@ def te_err(t_est, t_gt):
     return torch.linalg.norm(t_est - t_gt, dim=-1)
 
 
+def _sym_poses(R_gt, t_gt, sym_R, sym_t):
+    """GT poses composed with each symmetry: (..., S, 3, 3), (..., S, 3)."""
+    R_sym = R_gt[..., None, :, :] @ sym_R
+    t_sym = (R_gt[..., None, :, :] @ sym_t[..., :, None])[..., 0] \
+        + t_gt[..., None, :]
+    return R_sym, t_sym
+
+
+def _project(pts, R, t, K):
+    h = _transform(pts, R, t) @ K.transpose(-1, -2)
+    return h[..., :2] / h[..., 2:3]
+
+
+def mssd_err(R_est, t_est, R_gt, t_gt, pts, sym_R, sym_t):
+    """Maximum Symmetry-aware Surface Distance (BOP'19). sym_R (S, 3, 3),
+    sym_t (S, 3): the symmetry transforms, identity included."""
+    est = _transform(pts, R_est, t_est)                       # (..., N, 3)
+    R_sym, t_sym = _sym_poses(R_gt, t_gt, sym_R, sym_t)
+    gt_sym = _transform(pts[..., None, :, :], R_sym, t_sym)   # (..., S, N, 3)
+    d = torch.linalg.norm(est[..., None, :, :] - gt_sym, dim=-1)
+    return d.amax(-1).amin(-1)
+
+
+def mspd_err(R_est, t_est, R_gt, t_gt, K, pts, sym_R, sym_t):
+    """Maximum Symmetry-aware Projection Distance (BOP'19), in pixels."""
+    proj_est = _project(pts, R_est, t_est, K)                 # (..., N, 2)
+    R_sym, t_sym = _sym_poses(R_gt, t_gt, sym_R, sym_t)
+    proj_sym = _project(pts[..., None, :, :], R_sym, t_sym, K[..., None, :, :])
+    d = torch.linalg.norm(proj_est[..., None, :, :] - proj_sym, dim=-1)
+    return d.amax(-1).amin(-1)
+
+
+def proj_err(R_est, t_est, R_gt, t_gt, K, pts):
+    """Mean 2D projection distance (Brachmann CVPR'16)."""
+    d = _project(pts, R_est, t_est, K) - _project(pts, R_gt, t_gt, K)
+    return torch.linalg.norm(d, dim=-1).mean(-1)
+
+
 def batched_pose_errors(R_est: np.ndarray, t_est: np.ndarray, R_gt: np.ndarray,
                         t_gt: np.ndarray, pts: np.ndarray, chunk: int = 64,
                         device='cpu') -> dict:

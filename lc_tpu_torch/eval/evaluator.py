@@ -4,7 +4,8 @@ lc_tpu/eval/evaluator.py).
 GT records come from a BOP tree (`Evaluator.from_bop`) or straight from
 memory (`Evaluator(gts, models, models_info)`), so a run needs no files on
 disk. Estimates match GT by (scene_id, im_id, obj_id); per-object add / adi /
-re / te come from one batched pass (error6d.batched_pose_errors).
+re / te come from one batched pass (error6d.batched_pose_errors), and with
+bop=True the BOP'19 mssd / mspd and their average recalls.
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ import sys
 from collections import defaultdict
 
 import numpy as np
+import torch
 
-from .error6d import batched_pose_errors
+from .error6d import batched_pose_errors, mspd_err, mssd_err
 from .ply import load_ply_vertices
 from ..data import bop
 from ..geom.symmetry import DATASET_SYMMETRIC_OBJ_IDS
@@ -134,12 +136,72 @@ class Evaluator:
                     matched[i][k] = float(errs[k][j])
         return matched
 
+    def _sym_transforms(self, oid, max_sym_disc_step=0.01):
+        """The object's BOP symmetry set (the BOP toolkit's
+        get_symmetry_transformations): the identity and the discrete
+        symmetries, each composed with the continuous ones discretized at
+        max_sym_disc_step (the pure identity is then not in the set).
+        Returns (Rs (S, 3, 3), ts (S, 3)) in f32."""
+        info = self.models_info[oid]
+        disc = [(np.eye(3), np.zeros(3))]
+        for m in info.get('symmetries_discrete', []):
+            M = np.asarray(m, np.float64).reshape(4, 4)
+            disc.append((M[:3, :3], M[:3, 3]))
+        cont = []
+        for c in info.get('symmetries_continuous', []):
+            axis = np.asarray(c['axis'], np.float64)
+            axis = axis / np.linalg.norm(axis)
+            offset = np.asarray(c.get('offset', [0, 0, 0]), np.float64)
+            n_steps = int(np.ceil(np.pi / max_sym_disc_step))
+            for i in range(1, n_steps):
+                R = _axis_angle(axis, 2 * np.pi * i / n_steps)
+                cont.append((R, offset - R @ offset))
+        out = [(Rc @ Rd, Rc @ td + tc) for Rd, td in disc
+               for Rc, tc in cont] if cont else disc
+        return (np.stack([o[0] for o in out]).astype(np.float32),
+                np.stack([o[1] for o in out]).astype(np.float32))
+
+    def compute_bop_errors(self, matched, max_sym_disc_step=0.01,
+                           chunk=16):
+        """Adds BOP'19 mssd / mspd to every matched instance, computed on
+        the evaluator's device in chunks of instances; unmatched GT keeps
+        the max-float sentinel (a miss)."""
+        by_obj = defaultdict(list)
+        for i, g in enumerate(matched):
+            g['mssd'] = sys.float_info.max
+            g['mspd'] = sys.float_info.max
+            if g['R_est'] is not None:
+                by_obj[g['obj_id']].append(i)
+        as_t = lambda a: torch.as_tensor(  # noqa: E731
+            np.asarray(a, np.float32), device=self.device)
+        for oid, idxs in by_obj.items():
+            pts = as_t(self.models[oid])
+            sym_R, sym_t = (as_t(a) for a in
+                            self._sym_transforms(oid, max_sym_disc_step))
+            for c0 in range(0, len(idxs), chunk):
+                sub = idxs[c0:c0 + chunk]
+
+                def get(k, shape):
+                    return as_t(np.stack([np.asarray(
+                        matched[i][k], np.float32).reshape(shape)
+                        for i in sub]))
+                R_e, t_e = get('R_est', (3, 3)), get('t_est', (3,))
+                R_g, t_g = get('R_gt', (3, 3)), get('t_gt', (3,))
+                K = get('cam_K', (3, 3))
+                ms = mssd_err(R_e, t_e, R_g, t_g, pts, sym_R, sym_t).cpu()
+                mp = mspd_err(R_e, t_e, R_g, t_g, K, pts, sym_R, sym_t).cpu()
+                for j, i in enumerate(sub):
+                    matched[i]['mssd'] = float(ms[j])
+                    matched[i]['mspd'] = float(mp[j])
+        return matched
+
     def evaluate(self, outputs, errors=None, bop=False):
-        if bop:
-            raise NotImplementedError(
-                'BOP mssd/mspd scores (eval_bop_scores) are not ported yet')
+        """Per-object scores and the matched errors; bop=True adds the
+        BOP'19 mssd / mspd and their average recalls."""
         if errors is None:
             errors = self.compute_errors(self.match_results_to_gt(outputs))
+            if bop:
+                errors = self.compute_bop_errors(errors)
         if self.symmetric_obj_ids is not None:
             sym_ids = self.symmetric_obj_ids
         elif self.dataset_name is not None:
@@ -174,8 +236,27 @@ class Evaluator:
                 sd[f'add(-s)_{th:.2f}'] = float((ad_v < th * diameter).sum() / n)
                 sd[f'add-s_{th:.2f}'] = float((adi_v < th * diameter).sum() / n)
                 sd[f'add_{th:.2f}'] = float((add_v < th * diameter).sum() / n)
+            if all('mssd' in e for e in errs):
+                # BOP'19 average recalls: MSSD over 0.05..0.5 of the
+                # diameter, MSPD over 5..50 px scaled by image width / 640
+                mssd_v = np.array([e['mssd'] for e in errs])
+                mspd_v = np.array([e['mspd'] for e in errs])
+                w = np.array([e.get('im_w', 640.0) for e in errs])
+                sd['bop_mssd_ar'] = float(np.mean(
+                    [(mssd_v < th * diameter).sum() / n
+                     for th in np.arange(0.05, 0.51, 0.05)]))
+                sd['bop_mspd_ar'] = float(np.mean(
+                    [(mspd_v < r * w / 640.0).sum() / n
+                     for r in np.arange(5, 51, 5)]))
             out[oid] = sd
         return out
+
+
+def _axis_angle(axis: np.ndarray, angle: float) -> np.ndarray:
+    """Rotation by `angle` about the unit `axis` (Rodrigues), float64."""
+    Kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                   [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * Kx + (1 - np.cos(angle)) * Kx @ Kx
 
 
 def _plain_table(rows: list[list[str]]) -> str:

@@ -2,6 +2,7 @@
 of lc_tpu/harness.py, on one device)."""
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import time
@@ -10,11 +11,12 @@ import numpy as np
 import torch
 
 from . import inference, resolve_device
-from .data.pipeline import BOPDataset, Loader, device_preprocess
+from .data.pipeline import BOPDataset, Loader, MPLoader, device_preprocess
 from .eval.evaluator import Evaluator, gen_score_table
 from .geom.pose import pose7_to_RT
 from .loss.loss_fn import LossConfig
-from .models import build_model, default_compute_dtype, set_compute_dtype
+from .models import build_model, default_compute_dtype, quant, \
+    set_compute_dtype
 
 logger = logging.getLogger(__name__)
 
@@ -55,7 +57,9 @@ def build_model_from_cfg(cfg, total_bit_cnt: int = 0):
 
 def make_datasets(cfg, train: bool = True, seed: int = 0):
     """(dataset, loader) of the training or the test split. Training loaders
-    shuffle and drop the last partial batch. With train_dataset_1 the
+    shuffle and drop the last partial batch; under dataloader.multiprocess
+    the training loader is an MPLoader (worker processes, num_workers of
+    them, 8 by default). With train_dataset_1 the
     training loader is a RatioMixLoader: int(batch · ratio) crops of each
     batch from train_dataset_1 (its missing keys taken from train_dataset),
     the rest from train_dataset, each sub-loader on half the threads with
@@ -75,8 +79,10 @@ def make_datasets(cfg, train: bool = True, seed: int = 0):
             Loader(ds0, batch - b1, seed=seed + 1, num_threads=nw),
             Loader(ds1, b1, seed=seed, num_threads=nw))
     if train and cfg.dataloader.get('multiprocess', False):
-        raise NotImplementedError('MPLoader (dataloader.multiprocess) is not '
-                                  'ported yet')
+        loader = MPLoader(cfg.train_dataset, cfg, batch_size=batch,
+                          train=True, seed=seed,
+                          num_workers=cfg.dataloader.get('num_workers', 8))
+        return loader.ds, loader
     ds = BOPDataset(cfg.train_dataset if train else cfg.test_dataset, cfg,
                     train=train)
     loader = Loader(ds, batch, seed=seed, shuffle=train, drop_last=train,
@@ -165,12 +171,18 @@ def run_test(cfg, model, loader, dataset, evaluator,
     data/pipeline.py collated); dataset provides net_input_wh and bit_cnt.
     The dense heads (continuous NOC or Gray codes) go through
     inference.solve_pnp_dense, the sparse head (sparse_cnt > 3) through
-    solve_pnp_sparse.
+    solve_pnp_sparse. With int8_inference the CNN's convolutions run in
+    int8 (models/quant.py): int8_act_scales 'dynamic' (per-sample scales)
+    or 'static' (scales calibrated on the first batch, then fixed); decode,
+    RANSAC and LM are unchanged.
     Runs on `device`: CUDA unless 'cpu' is passed. Returns
     {solver: dict(avg_score, per_obj_score, errors, tables)}."""
     device = resolve_device(device)
-    if cfg.get('int8_inference', False):
-        raise NotImplementedError('int8 inference is not ported yet')
+    int8 = bool(cfg.get('int8_inference', False))
+    act_mode = str(cfg.get('int8_act_scales', 'dynamic'))
+    if int8 and act_mode not in ('dynamic', 'static'):
+        raise ValueError(f'int8_act_scales must be dynamic or static, not '
+                         f'{act_mode!r}')
     solver_cfg = cfg.pnp_solver
     sparse = cfg.get('sparse_cnt', 0) > 3
     model = set_compute_dtype(model.to(device).eval(),
@@ -181,6 +193,7 @@ def run_test(cfg, model, loader, dataset, evaluator,
     total_time = 0.0
     n_insts = 0
     first_time = first_insts = None
+    act_scales = None
     for batch in loader:
         t_start = time.perf_counter()
         n_valid = len(batch['im_id'])
@@ -188,7 +201,13 @@ def run_test(cfg, model, loader, dataset, evaluator,
                      for k, v in batch.items()}
         gt = device_preprocess(dev_batch, net_input_wh=dataset.net_input_wh)
         with torch.no_grad():
-            out = model(gt['img_in'])
+            if int8 and act_mode == 'static' and act_scales is None:
+                # static scales, calibrated on the first batch
+                act_scales = quant.calibrate_act_scales(model,
+                                                        [gt['img_in']])
+            with quant.quantized_int8(model, act_scales=act_scales) \
+                    if int8 else contextlib.nullcontext():
+                out = model(gt['img_in'])
         thr = None
         if solver_cfg.get('rel_reproj_err', False):
             # 2 px at full-image scale

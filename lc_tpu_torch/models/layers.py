@@ -2,9 +2,13 @@
 
 Mixed precision as in lc_tpu: convolutions compute in `compute_dtype` (bf16
 on the card; parameters stay f32), every BatchNorm computes in f32. The CPU
-runs the convolutions in f32. BN eps is 1e-5, torch's default.
+runs the convolutions in f32. BN eps is 1e-5, torch's default. Inside
+models/quant.py's quantized_int8 context (INT8_MODE set) the convolutions it
+takes compute in int8 instead.
 """
 from __future__ import annotations
+
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -17,14 +21,27 @@ def default_compute_dtype(device) -> torch.dtype:
         else torch.float32
 
 
+# the int8 mode of models/quant.py, None outside its context
+INT8_MODE: contextvars.ContextVar = contextvars.ContextVar('int8_mode',
+                                                           default=None)
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that computes in `compute_dtype`."""
     compute_dtype = torch.float32
 
     def forward(self, x):
+        mode = INT8_MODE.get()
+        if mode is not None and mode.takes(self, x):
+            return mode(self, x)
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class StemConv2d(Conv2d):
+    """The encoders' 7x7/s2 stem. A Conv2d in every respect; int8 inference
+    takes it only at odd input sizes (models/quant.py)."""
 
 
 class Deconv2x(nn.ConvTranspose2d):
@@ -37,6 +54,9 @@ class Deconv2x(nn.ConvTranspose2d):
                          output_padding=1, bias=False)
 
     def forward(self, x):
+        mode = INT8_MODE.get()
+        if mode is not None and mode.takes(self, x):
+            return mode(self, x)
         dt = self.compute_dtype
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
                                   stride=2, padding=1, output_padding=1)

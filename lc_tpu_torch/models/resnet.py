@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from .layers import BatchNorm2d, Conv2d
+from .layers import BatchNorm2d, Conv2d, StemConv2d
 
 
 class BasicBlock(nn.Module):
@@ -51,7 +51,7 @@ class ResNetBackbone(nn.Module):
 
     def __init__(self, layers=(3, 4, 6, 3)):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = StemConv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -84,7 +84,7 @@ class ZebraResNetOS8(nn.Module):
     def __init__(self):
         super().__init__()
         self.resnet_layer_1 = nn.Sequential(
-            Conv2d(3, 64, 7, 2, 3, bias=False), BatchNorm2d(64),
+            StemConv2d(3, 64, 7, 2, 3, bias=False), BatchNorm2d(64),
             nn.ReLU(inplace=True))
         self.resnet_layer_2 = nn.Sequential(nn.MaxPool2d(3, 2, 1),
                                             res_layer(64, 64, 3))

@@ -6,15 +6,19 @@ TPU's matrix unit wastes its 128x128 tiles on them; on the card plain f32
 matmuls are right, so the port keeps only the results:
   * SPD solves go through torch.linalg.cholesky_ex / cholesky_solve (the same
     factorization as lc_tpu's unrolled Cholesky, rounding-level differences);
-  * the fixed-sweep cyclic Jacobi eigensolver (3x3 PCA frames) and the shifted
-    inverse subspace iteration for EPnP's 12x12 near-null space are kept as
-    algorithms, because their truncation is part of lc_tpu's answer: the
-    eigenvector signs of the Jacobi sweeps fix EPnP's control points, and
-    three subspace iterations are not an exact eigendecomposition. The 4x4
-    Rayleigh-Ritz step uses torch.linalg.eigh (its eigenvector signs cancel
-    in EPnP's beta fit).
+  * the fixed-sweep cyclic Jacobi eigensolver (3x3 PCA frames, and the 4x4
+    Rayleigh-Ritz step of EPnP's 12x12 near-null space) and the shifted
+    inverse subspace iteration are kept as algorithms, because their
+    truncation is part of lc_tpu's answer: the eigenvector signs of the
+    Jacobi sweeps fix EPnP's control points, and three subspace iterations
+    are not an exact eigendecomposition. Each Jacobi rotation is one plane
+    rotation applied as two batched products, six device operations, with
+    no workspace beyond its operands (torch.linalg.eigh's batched workspace
+    was RANSAC's device-memory peak).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -61,35 +65,64 @@ def inv3(M: torch.Tensor) -> torch.Tensor:
     return rows * inv_det[..., None, None]
 
 
+@functools.lru_cache(maxsize=16)
+def _plane_rotations(n: int, dtype, device) -> tuple:
+    """For every (p, q) of the cyclic order: W (n², 2), which maps A's
+    entries to z = (A_pp - A_qq) + 2i A_pq (its half argument is the
+    rotation angle), the bias b (2,) that makes z = 0 turn by angle 0, and
+    C0 (5n²), Ccs (2, 5n²), which give the plane rotation J (n, n) and the
+    block matrix blockdiag(Jᵀ, I) (2n, 2n), flattened one after the other,
+    as C0 + (cos, sin) @ Ccs."""
+    out = []
+    b = torch.tensor([torch.finfo(dtype).tiny, 0.0], dtype=dtype)
+    for p in range(n - 1):
+        for q in range(p + 1, n):
+            W = torch.zeros(n * n, 2, dtype=dtype)
+            W[p * n + p, 0], W[q * n + q, 0], W[p * n + q, 1] = 1.0, -1.0, 2.0
+            J0 = torch.eye(n, dtype=dtype)
+            J0[p, p] = J0[q, q] = 0.0
+            Jc = torch.zeros(n, n, dtype=dtype)
+            Jc[p, p] = Jc[q, q] = 1.0
+            Js = torch.zeros(n, n, dtype=dtype)
+            Js[q, p], Js[p, q] = 1.0, -1.0
+            eye = torch.eye(n, dtype=dtype)
+            parts = [torch.cat((J.flatten(), torch.block_diag(
+                J.T, eye if J is J0 else 0 * eye).flatten()))
+                for J in (J0, Jc, Js)]
+            out.append(tuple(t.to(device) for t in (
+                W, b, parts[0], torch.stack(parts[1:]))))
+    return tuple(out)
+
+
 def jacobi_eigh_small(A: torch.Tensor, sweeps: int = 8
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric eigendecomposition of tiny matrices by cyclic Jacobi with a
-    fixed number of sweeps. A (..., n, n) -> (eigvals (..., n) ascending,
-    eigvecs (..., n, n) columns)."""
+    fixed number of sweeps (lc_tpu's rotation order and angles). A
+    (..., n, n) -> (eigvals (..., n) ascending, eigvecs (..., n, n)
+    columns). A non-finite A gives non-finite results.
+
+    A and the eigenvectors V travel stacked as M = [A; V] (2n, n); a
+    rotation is M <- blockdiag(Jᵀ, I) M J, its cosine and sine the square
+    root of z/|z| (z of _plane_rotations): six device operations."""
     n = A.shape[-1]
-    A = A.clone()
-    V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    batch = A.shape[:-2]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    M = torch.cat((A, eye.expand(A.shape)), -2).reshape(-1, 2 * n, n)
+    P = M.shape[0]
     for _ in range(sweeps):
-        for p in range(n - 1):
-            for q in range(p + 1, n):
-                theta = 0.5 * torch.atan2(2.0 * A[..., p, q],
-                                          A[..., p, p] - A[..., q, q])
-                c = torch.cos(theta)[..., None]
-                s = torch.sin(theta)[..., None]
-                # A <- Jᵀ A J with J the (p, q) plane rotation
-                Ap, Aq = A[..., p, :].clone(), A[..., q, :].clone()
-                A[..., p, :] = c * Ap + s * Aq
-                A[..., q, :] = -s * Ap + c * Aq
-                Ap, Aq = A[..., :, p].clone(), A[..., :, q].clone()
-                A[..., :, p] = c * Ap + s * Aq
-                A[..., :, q] = -s * Ap + c * Aq
-                Vp, Vq = V[..., :, p].clone(), V[..., :, q].clone()
-                V[..., :, p] = c * Vp + s * Vq
-                V[..., :, q] = -s * Vp + c * Vq
-    vals = torch.diagonal(A, dim1=-2, dim2=-1)
+        for W, b, C0, Ccs in _plane_rotations(n, A.dtype,
+                                              torch.device(A.device)):
+            z = torch.addmm(b, M[:, :n].reshape(P, n * n), W)
+            cs = torch.view_as_real(torch.sqrt(torch.sgn(
+                torch.view_as_complex(z))))
+            JL = torch.addmm(C0, cs, Ccs)
+            M = torch.bmm(torch.bmm(JL[:, n * n:].view(P, 2 * n, 2 * n), M),
+                          JL[:, :n * n].view(P, n, n))
+    M = M.reshape(batch + (2 * n, n))
+    vals = torch.diagonal(M[..., :n, :], dim1=-2, dim2=-1)
     order = torch.argsort(vals, dim=-1, stable=True)
     vals = torch.gather(vals, -1, order)
-    V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
+    V = torch.gather(M[..., n:, :], -1, order[..., None, :].expand(A.shape))
     return vals, V
 
 
@@ -124,8 +157,7 @@ def smallest_eigvecs(A: torch.Tensor, k: int, iters: int = 6
         X = _orthonormalize_cols(torch.cholesky_solve(X, L))
     T = X.transpose(-1, -2) @ A @ X
     T = 0.5 * (T + T.transpose(-1, -2))
-    # eigh raises on non-finite input (degenerate samples); such rows carry a
-    # non-finite X, so their result stays non-finite and the caller rejects it
-    vals, Q = torch.linalg.eigh(torch.nan_to_num(T, nan=0.0, posinf=0.0,
-                                                 neginf=0.0))
+    # a degenerate sample carries a non-finite X, hence T; the Jacobi sweeps
+    # keep it non-finite, so the caller rejects it
+    vals, Q = jacobi_eigh_small(T)
     return X @ Q, vals

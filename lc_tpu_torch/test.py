@@ -4,8 +4,9 @@
         --output out --obj 1 [--opts ...] [--deterministic] [--device cpu]
 
 --weight takes a .pth/.pt state dict in the reference layout, or a .ckpt
-written by lc_tpu_torch.train (model_final.ckpt, model_best_*.ckpt or a
-training checkpoint). Runs on CUDA unless --device cpu is given.
+written by lc_tpu_torch.train or by lc_tpu.train (model_final.ckpt,
+model_best_*.ckpt or a training checkpoint; told apart by their envelope).
+Runs on CUDA unless --device cpu is given.
 """
 from __future__ import annotations
 
@@ -14,11 +15,14 @@ import logging
 import os
 import os.path as osp
 import pickle
+import zipfile
 
 import torch
 
 from . import harness, resolve_device
 from .eval.evaluator import csv_from_results
+from .models.weights import state_dict_from_flax
+from .utils import flax_ckpt
 from .utils.checkpoint import model_state_dict
 from .utils.config import load_config
 from .utils.logging import setup_logger
@@ -37,17 +41,31 @@ def load_reference_state_dict(path: str) -> dict:
             torch.as_tensor(v) for k, v in sd.items()}
 
 
-def load_weights(path: str) -> dict:
-    """The model's state_dict from a reference .pth/.pt or a .ckpt of
-    lc_tpu_torch.train. lc_tpu's msgpack .ckpt files are not read yet."""
+def load_weights(path: str, cfg) -> dict:
+    """The model's state_dict from a reference .pth/.pt, a .ckpt of
+    lc_tpu_torch.train (torch's zip format) or a .ckpt of lc_tpu.train (a
+    pickled envelope around flax msgpack: a TrainState's or a plain
+    export's params and batch_stats, carried over by
+    state_dict_from_flax for the configured network)."""
     if not path.endswith('.ckpt'):
         return load_reference_state_dict(path)
+    if zipfile.is_zipfile(path):
+        try:
+            return model_state_dict(path)
+        except (RuntimeError, KeyError, TypeError) as e:
+            raise SystemExit(f'{path} is not a checkpoint of '
+                             f'lc_tpu_torch.train: {e}')
     try:
-        return model_state_dict(path)
-    except (RuntimeError, KeyError, TypeError, EOFError,
-            pickle.UnpicklingError) as e:
-        raise SystemExit(f'{path} is not a checkpoint of lc_tpu_torch.train '
-                         f'(lc_tpu msgpack .ckpt files are not read yet): {e}')
+        variables = flax_ckpt.read_variables(path)
+    except (EOFError, pickle.UnpicklingError) as e:
+        raise SystemExit(f'{path} is neither a checkpoint of '
+                         f'lc_tpu_torch.train nor of lc_tpu.train: {e!r}')
+    except (ValueError, KeyError, TypeError, UnicodeDecodeError) as e:
+        raise SystemExit(f'{path}: {e}')
+    net_cfg = cfg.model.get('net_config', {})
+    return state_dict_from_flax(
+        variables, bool(net_cfg.get('concat', False)),
+        net_name=cfg.model.net_name, sparse_cnt=cfg.get('sparse_cnt', 0))
 
 
 def main(argv=None):
@@ -68,7 +86,7 @@ def main(argv=None):
     if not args.weight.endswith(('.pth', '.pt', '.ckpt')):
         raise SystemExit('lc_tpu_torch.test reads .pth/.pt state dicts in the '
                          'reference layout and .ckpt files of '
-                         'lc_tpu_torch.train')
+                         'lc_tpu_torch.train and lc_tpu.train')
 
     cfg_name = osp.splitext(osp.split(args.config)[1])[0]
     cfg = load_config(args.config, args.opts)
@@ -84,7 +102,7 @@ def main(argv=None):
     bit_cnt = test_set.bit_cnt
     model = harness.build_model_from_cfg(
         cfg, 0 if bit_cnt is None else sum(bit_cnt))
-    model.load_state_dict(load_weights(args.weight))
+    model.load_state_dict(load_weights(args.weight, cfg))
     logger.info('loaded %s', args.weight)
 
     if args.deterministic:

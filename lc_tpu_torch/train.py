@@ -100,15 +100,28 @@ def step_inputs(batch: dict, seed: int, step: int, device, pp_kwargs: dict,
 
 def endless_batches(loader, start_step: int):
     """The loader's batches from global batch index start_step on, across
-    epochs."""
+    epochs (MPLoader streams across them itself)."""
+    if hasattr(loader, 'endless'):
+        yield from loader.endless(start_step)
+        return
     loader.set_position(start_step)
     while True:
         yield from loader
 
 
 def train(args, cfg, outdir: str, device=None):
-    """The training loop; returns the trained model."""
+    """The training loop; returns the trained model. A loader with worker
+    processes (MPLoader) is closed when the loop ends."""
     comps = build_training(cfg, device=device)
+    try:
+        return _train_loop(args, cfg, outdir, comps)
+    finally:
+        close = getattr(comps['train_loader'], 'close', None)
+        if close is not None:
+            close()
+
+
+def _train_loop(args, cfg, outdir: str, comps: dict):
     model, optimizer, scheduler = (comps['model'], comps['optimizer'],
                                    comps['scheduler'])
     loss_state, device, seed = comps['loss_state'], comps['device'], comps['seed']

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no jax/flax/optax/lc_tpu import anywhere in
-lc_tpu_torch or chip_smoke.py, and its entry points refuse to fall back to
+"""The PyTorch port stands alone: no jax/flax/optax/msgpack/lc_tpu import
+anywhere in lc_tpu_torch or chip_smoke.py (lc_tpu's .ckpt files are read by
+the port's own msgpack decoder), and its entry points refuse to fall back to
 the CPU when no CUDA device is present."""
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'lc_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'lc_tpu')
 
 
 def _port_sources():

@@ -125,3 +125,56 @@ def test_final_pose_matches_with_injected_indices():
     dt, dq = _pose_diff(np.asarray(rj.pose7), rt.pose7.numpy())
     assert np.all(dt < 0.05) and np.all(dq > 1 - 1e-5), (dt, dq)
     np.testing.assert_array_equal(np.asarray(rj.inliers), rt.inliers.numpy())
+
+
+def _psd_batch(seed, batch=16, n=12):
+    """Random PSD (batch, n, n) matrices: four small eigenvalues (0.05-0.4,
+    each a factor 2 from the next) below a spectrum of 5-10, a gap that
+    f32 resolves (the contract of lc_tpu's TestSmallEigh)."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.normal(size=(batch, n, n)))[0]
+    lam = np.concatenate((np.array([0.05, 0.1, 0.2, 0.4])
+                          * rng.uniform(0.9, 1.1, (batch, 4)),
+                          rng.uniform(5.0, 10.0, (batch, n - 4))), -1)
+    return ((Q * lam[:, None, :]) @ Q.transpose(0, 2, 1)).astype(np.float32)
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_smallest_eigvecs_matches_lc_tpu(seed, monkeypatch):
+    """The port's subspace iteration + Jacobi Rayleigh-Ritz against
+    lc_tpu's on random PSD 12x12 inputs: eigenvalues within 1e-5
+    (absolute; f32 rounding at a spectrum of 10), each eigenvector within
+    1e-4 of lc_tpu's up to its sign (|v·v'| > 1 - 1e-4). torch.linalg.eigh
+    is not reached (monkeypatched to raise)."""
+    from lc_tpu.ops import smallmat as jsm
+    from lc_tpu_torch.ops import smallmat as tsm
+
+    def no_eigh(*a, **k):
+        raise AssertionError('torch.linalg.eigh reached')
+    monkeypatch.setattr(torch.linalg, 'eigh', no_eigh)
+    A = _psd_batch(seed)
+    jv, jl = (np.asarray(x) for x in jsm.smallest_eigvecs(jnp.asarray(A), 4))
+    tv, tl = (x.numpy() for x in tsm.smallest_eigvecs(torch.from_numpy(A), 4))
+    np.testing.assert_allclose(tl, jl, atol=1e-5)
+    dots = np.abs(np.sum(tv * jv, axis=-2))
+    assert dots.min() > 1 - 1e-4, dots.min()
+
+
+def test_jacobi_eigh_matches_lc_tpu_and_keeps_nan():
+    """jacobi_eigh_small (plane rotations as batched products) against
+    lc_tpu's element-wise form on random symmetric 3x3 and 4x4 inputs:
+    the same rotation order, so eigenvectors agree with their signs
+    (atol 1e-5); a non-finite input stays non-finite."""
+    from lc_tpu.ops import smallmat as jsm
+    from lc_tpu_torch.ops import smallmat as tsm
+    rng = np.random.default_rng(5)
+    for n in (3, 4):
+        M = rng.normal(size=(32, n, n)).astype(np.float32)
+        A = M + M.transpose(0, 2, 1)
+        jl, jv = (np.asarray(x) for x in jsm.jacobi_eigh_small(jnp.asarray(A)))
+        tl, tv = (x.numpy() for x in tsm.jacobi_eigh_small(torch.from_numpy(A)))
+        np.testing.assert_allclose(tl, jl, atol=1e-5)
+        np.testing.assert_allclose(tv, jv, atol=1e-5)
+    A[0, 1, 2] = A[0, 2, 1] = np.nan
+    tl, tv = tsm.jacobi_eigh_small(torch.from_numpy(A))
+    assert not torch.isfinite(tv[0]).all() and torch.isfinite(tv[1:]).all()

@@ -586,9 +586,22 @@ def test_train_cli_zsyn_resume_and_test(zsyn_tree, tmp_path, monkeypatch):
 
 
 def test_mploader_still_raises(zsyn_tree):
-    """dataloader.multiprocess (lc_tpu's process-pool MPLoader) is not
-    ported: make_datasets raises rather than fall back to threads."""
+    """dataloader.multiprocess: make_datasets builds the process-pool
+    MPLoader, on num_workers workers, with the loader's dataset returned
+    (it no longer raises; the name is kept). A config with train_dataset_1
+    keeps the RatioMixLoader whatever multiprocess says, as lc_tpu's
+    make_datasets returns that branch first."""
+    from lc_tpu_torch.data.pipeline import MPLoader
     cfg = zsyn_cfg(zsyn_tree, **{'dataloader.multiprocess': True})
+    _, mix = harness.make_datasets(cfg, train=True)
+    assert isinstance(mix, harness.RatioMixLoader)
     del cfg['train_dataset_1']
-    with pytest.raises(NotImplementedError, match='MPLoader'):
-        harness.make_datasets(cfg, train=True)
+    ds, loader = harness.make_datasets(cfg, train=True, seed=3)
+    try:
+        assert isinstance(loader, MPLoader)
+        assert ds is loader.ds and ds.bit_cnt == BIT_CNT
+        assert loader._pool._max_workers == 2 and loader.seed == 3
+        batch = next(iter(loader))
+        assert len(batch['obj_id']) == 4
+    finally:
+        loader.close()
