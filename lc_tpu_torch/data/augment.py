@@ -10,12 +10,16 @@ The random values are drawn in one function (`draw_color_aug`, from a
 torch.Generator) and applied in another (`apply_color_aug`), so a test can
 hand both packages the same values. jax.random's bits cannot be reproduced
 in torch: the two pipelines agree in distribution, and exactly where they
-are fed the same values.
+are fed the same values. A data-parallel rank draws the values of the
+global batch and keeps its own rows, so each crop sees the same draws at
+any number of ranks.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 MOTION_DIRS = ((0, 1), (1, 0), (1, 1), (1, -1))  # horizontal, vertical, diagonals
 
@@ -129,10 +133,18 @@ def apply_color_aug(x: torch.Tensor, d: dict) -> torch.Tensor:
 def color_augment(x: torch.Tensor, gen: torch.Generator, *,
                   use_pepper_salt=False, use_motion_blur=False,
                   use_invert=False) -> torch.Tensor:
-    """Draw and apply. x: (B, H, W, 3) float in [0, 255]."""
-    d = draw_color_aug(x.shape, gen, use_pepper_salt=use_pepper_salt,
+    """Draw and apply. x: (B, H, W, 3) float in [0, 255]; inside a
+    data-parallel context (parallel/mesh.py) the rows of this rank of a
+    global batch of B · ranks crops: the values are drawn for the global
+    batch and this rank's slice kept."""
+    shard = mesh.active()
+    count = 1 if shard is None else shard.count
+    d = draw_color_aug((x.shape[0] * count,) + tuple(x.shape[1:]), gen,
+                       use_pepper_salt=use_pepper_salt,
                        use_motion_blur=use_motion_blur, use_invert=use_invert,
                        device=x.device)
+    if count > 1:
+        d = {k: mesh.local_rows(v, shard) for k, v in d.items()}
     return apply_color_aug(x, d)
 
 

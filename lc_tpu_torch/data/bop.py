@@ -121,8 +121,12 @@ def load_annots_from_image_list(file_list_names, dataset_root, *, flatten=True,
     _append_quaternion_state(records)
 
     if cache_path:
+        # written aside and renamed: data-parallel ranks build the same
+        # cache at once, and none may read another's half-written file
         os.makedirs(cache_dir, exist_ok=True)
-        np.save(cache_path, {'all_annots': records})
+        tmp = f'{cache_path[:-4]}.{os.getpid()}.tmp.npy'
+        np.save(tmp, {'all_annots': records})
+        os.replace(tmp, cache_path)
     return _flatten(records) if flatten else records
 
 

@@ -22,6 +22,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import bop
 from .augment import color_augment, switch_background
@@ -391,11 +392,15 @@ class Loader:
     sample that comes back None replaced by a random one. Every sample draws
     from np.random.default_rng((seed, epoch, batch index, row)), so the
     stream is a function of its position: a resumed run (set_position)
-    repeats the uninterrupted one, whatever the threads do."""
+    repeats the uninterrupted one, whatever the threads do.
+    process_index / process_count carve each global batch into this
+    process's contiguous slice, its rows drawn from their global positions,
+    so the union of the processes' streams is the one-process stream."""
 
     def __init__(self, dataset, batch_size: int, *, seed: int = 0,
                  shuffle: bool | None = None, num_threads: int = 4,
-                 prefetch: int = 2, drop_last: bool | None = None):
+                 prefetch: int = 2, drop_last: bool | None = None,
+                 process_index: int = 0, process_count: int = 1):
         self.ds = dataset
         self.batch_size = batch_size
         train = getattr(dataset, 'training', False)
@@ -406,6 +411,9 @@ class Loader:
         self.window = max(prefetch, self.num_threads)
         self.epoch = 0
         self._skip = 0
+        self.process_index = process_index
+        self.process_count = process_count
+        _check_carving(batch_size, process_count, self.drop_last)
 
     def __len__(self):
         n = len(self.ds)
@@ -426,8 +434,9 @@ class Loader:
         return blob
 
     def _batch(self, epoch: int, i: int, idxs) -> dict:
+        idxs, base = _carve(idxs, self.process_index, self.process_count)
         return collate([self._sample_ok(int(j), np.random.default_rng(
-            (self.seed, epoch, i, jj))) for jj, j in enumerate(idxs)])
+            (self.seed, epoch, i, base + jj))) for jj, j in enumerate(idxs)])
 
     def __iter__(self):
         epoch = self.epoch
@@ -450,6 +459,25 @@ class Loader:
             finally:
                 for f in pending:
                     f.cancel()
+
+
+def _check_carving(batch_size: int, process_count: int, drop_last: bool):
+    if process_count > 1:
+        if batch_size % process_count:
+            raise ValueError(f'batch_size {batch_size} not divisible by '
+                             f'{process_count} processes')
+        if not drop_last:
+            raise ValueError('sharded loading requires drop_last')
+
+
+def _carve(idxs, process_index: int, process_count: int):
+    """(this process's slice of a global batch's indices, its first global
+    row)."""
+    if process_count <= 1:
+        return idxs, 0
+    per = len(idxs) // process_count
+    base = process_index * per
+    return idxs[base:base + per], base
 
 
 # The process-pool loader. Each worker builds one BOPDataset in its
@@ -513,26 +541,13 @@ class MPLoader:
         self.epoch = 0
         self.process_index = process_index
         self.process_count = process_count
-        if process_count > 1:
-            if batch_size % process_count:
-                raise ValueError(f'batch_size {batch_size} not divisible by '
-                                 f'{process_count} processes')
-            if not self.drop_last:
-                raise ValueError('sharded loading requires drop_last')
+        _check_carving(batch_size, process_count, self.drop_last)
         ctx = multiprocessing.get_context('forkserver')
         ctx.set_forkserver_preload([__name__])
         self._pool = ProcessPoolExecutor(
             max_workers=max(num_workers, 1), mp_context=ctx,
             initializer=_mp_init,
             initargs=(_plain(cfg_dataset), _plain(cfg_global), train))
-
-    def _carve(self, idxs):
-        """(this process's slice of a global batch, its first global row)."""
-        if self.process_count <= 1:
-            return idxs, 0
-        per = len(idxs) // self.process_count
-        base = self.process_index * per
-        return idxs[base:base + per], base
 
     def __len__(self):
         n = len(self.ds)
@@ -545,7 +560,8 @@ class MPLoader:
             np.random.default_rng((self.seed, epoch)).shuffle(order)
         bs = self.batch_size
         for i in range(first, len(self)):
-            local, base = self._carve(order[i * bs:(i + 1) * bs])
+            local, base = _carve(order[i * bs:(i + 1) * bs],
+                                 self.process_index, self.process_count)
             yield local, (self.seed, epoch, i), base
 
     def _stream(self, jobs):
@@ -593,7 +609,9 @@ def device_preprocess(batch: dict, generator: torch.Generator | None = None, *,
                       use_pepper_salt=False, use_motion_blur=False,
                       use_invert=False, train=False) -> dict:
     """The device stage: crops, background switch, colour augmentation (its
-    values drawn from `generator`, on the batch's device), normalization.
+    values drawn from `generator`, on the batch's device; inside a
+    data-parallel context for the global batch, of which `batch` holds this
+    rank's rows), normalization.
     batch: dict of tensors on the target device, the collated host blobs.
     Returns the gt blob the model and the losses consume."""
     in_hw = (net_input_wh[1], net_input_wh[0])
@@ -653,3 +671,53 @@ def device_preprocess(batch: dict, generator: torch.Generator | None = None, *,
     std = torch.as_tensor(IMAGENET_STD, device=dev)
     out['img_in'] = (rgb_in / 255.0 - mean) / std
     return out
+
+
+def device_prefetch(host_batches, preprocess_fn, device, size: int = 2):
+    """Stage the next `size` host batches on the device while the caller
+    works on the current one (counterpart of lc_tpu's device_prefetch):
+    yields preprocess_fn(the batch on `device`, i), i counting the batches
+    from 0, the values those of staging each batch when it is taken (size
+    0).
+
+    On CUDA a staged batch is copied from pinned host memory and
+    preprocessed on a side stream. Before a batch is handed over, the
+    caller's stream waits for that work, and every tensor in it is recorded
+    on the caller's stream (record_stream), so the allocator reuses none of
+    its memory while the caller's stream may still read it. Off CUDA the
+    batches are staged ahead in line. The copy is the profiler range
+    'h2d'."""
+    device = torch.device(device)
+    side = torch.cuda.Stream(device) \
+        if device.type == 'cuda' and size > 0 else None
+
+    def stage(i, batch):
+        if side is None:
+            with record_function('h2d'):
+                dev = {k: torch.as_tensor(v).to(device)
+                       for k, v in batch.items()}
+            return preprocess_fn(dev, i), None
+        pinned = {k: torch.as_tensor(v).pin_memory() for k, v in batch.items()}
+        with torch.cuda.stream(side):
+            with record_function('h2d'):
+                dev = {k: v.to(device, non_blocking=True)
+                       for k, v in pinned.items()}
+            out = preprocess_fn(dev, i)
+        return out, side.record_event()
+
+    def hand_over(out, done):
+        if done is not None:
+            current = torch.cuda.current_stream(device)
+            current.wait_event(done)
+            for v in out.values():
+                if torch.is_tensor(v) and v.is_cuda:
+                    v.record_stream(current)
+        return out
+
+    pending: collections.deque = collections.deque()
+    for i, batch in enumerate(host_batches):
+        pending.append(stage(i, batch))
+        if len(pending) > size:
+            yield hand_over(*pending.popleft())
+    while pending:
+        yield hand_over(*pending.popleft())

@@ -17,6 +17,7 @@ from .geom.pose import pose7_to_RT
 from .loss.loss_fn import LossConfig
 from .models import build_model, default_compute_dtype, quant, \
     set_compute_dtype
+from .parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -55,7 +56,8 @@ def build_model_from_cfg(cfg, total_bit_cnt: int = 0):
                        total_bit_cnt=total_bit_cnt)
 
 
-def make_datasets(cfg, train: bool = True, seed: int = 0):
+def make_datasets(cfg, train: bool = True, seed: int = 0,
+                  process_index: int = 0, process_count: int = 1):
     """(dataset, loader) of the training or the test split. Training loaders
     shuffle and drop the last partial batch; under dataloader.multiprocess
     the training loader is an MPLoader (worker processes, num_workers of
@@ -64,29 +66,44 @@ def make_datasets(cfg, train: bool = True, seed: int = 0):
     batch from train_dataset_1 (its missing keys taken from train_dataset),
     the rest from train_dataset, each sub-loader on half the threads with
     seeds seed and seed + 1 (reference utils.py:79-147, MultiLoader); the
-    dataset returned is train_dataset's."""
+    dataset returned is train_dataset's. A training loader yields the
+    process_index-th of process_count contiguous slices of each global
+    batch (each sub-stream's, under train_dataset_1); the test loader
+    yields whole batches (run_test shards them)."""
     batch = cfg.dataloader.batch_size
+    proc = dict(process_index=process_index,
+                process_count=process_count) if train else {}
     if train and 'train_dataset_1' in cfg:
         d1_cfg = copy.deepcopy(cfg.train_dataset_1)
         for k, v in cfg.train_dataset.items():
             if k not in d1_cfg:
                 d1_cfg[k] = v
         b1 = int(batch * cfg.train_dataset_1.ratio)
+        if process_count > 1 and (b1 % process_count
+                                  or (batch - b1) % process_count):
+            # each sub-stream is carved on its own, so both sub-batches
+            # must divide: stricter than batch_size alone
+            raise ValueError(
+                f'ratio-mixed sharded loading: sub-batches {b1} and '
+                f'{batch - b1} (batch_size {batch} x ratio '
+                f'{cfg.train_dataset_1.ratio}) must each be divisible by '
+                f'{process_count} processes')
         ds1 = BOPDataset(d1_cfg, cfg, train=True)
         ds0 = BOPDataset(cfg.train_dataset, cfg, train=True)
         nw = max(cfg.dataloader.get('num_workers', 4) // 2, 1)
         return ds0, RatioMixLoader(
-            Loader(ds0, batch - b1, seed=seed + 1, num_threads=nw),
-            Loader(ds1, b1, seed=seed, num_threads=nw))
+            Loader(ds0, batch - b1, seed=seed + 1, num_threads=nw, **proc),
+            Loader(ds1, b1, seed=seed, num_threads=nw, **proc))
     if train and cfg.dataloader.get('multiprocess', False):
         loader = MPLoader(cfg.train_dataset, cfg, batch_size=batch,
                           train=True, seed=seed,
-                          num_workers=cfg.dataloader.get('num_workers', 8))
+                          num_workers=cfg.dataloader.get('num_workers', 8),
+                          **proc)
         return loader.ds, loader
     ds = BOPDataset(cfg.train_dataset if train else cfg.test_dataset, cfg,
                     train=train)
     loader = Loader(ds, batch, seed=seed, shuffle=train, drop_last=train,
-                    num_threads=cfg.dataloader.get('num_workers', 4))
+                    num_threads=cfg.dataloader.get('num_workers', 4), **proc)
     return ds, loader
 
 
@@ -165,7 +182,7 @@ def get_evaluator(cfg, device='cpu') -> Evaluator:
 def run_test(cfg, model, loader, dataset, evaluator,
              score_key: str = 'add(-s)_0.10', seed: int = 0,
              device=None) -> dict:
-    """Full inference + evaluation pass on one device.
+    """Full inference + evaluation pass.
 
     loader yields host batches (dicts of numpy arrays, the eval blobs of
     data/pipeline.py collated); dataset provides net_input_wh and bit_cnt.
@@ -175,9 +192,18 @@ def run_test(cfg, model, loader, dataset, evaluator,
     int8 (models/quant.py): int8_act_scales 'dynamic' (per-sample scales)
     or 'static' (scales calibrated on the first batch, then fixed); decode,
     RANSAC and LM are unchanged.
-    Runs on `device`: CUDA unless 'cpu' is passed. Returns
+    Runs on `device`: CUDA unless 'cpu' is passed. Inside a data-parallel
+    context (parallel/mesh.py) the pass is sharded as lc_tpu's is over its
+    mesh: each eval batch is padded to a multiple of the number of ranks
+    (its last crop repeated), each rank runs the CNN and the solve on its
+    contiguous rows, and the poses are gathered in rank order on every
+    rank, the padded rows dropped. The RANSAC draws are made for the global
+    batch and sliced, so each crop sees the same draws at any number of
+    ranks; static int8 scales are the max over the ranks, the global
+    batch's. Every rank returns the same results. Returns
     {solver: dict(avg_score, per_obj_score, errors, tables)}."""
     device = resolve_device(device)
+    shard = mesh.active()
     int8 = bool(cfg.get('int8_inference', False))
     act_mode = str(cfg.get('int8_act_scales', 'dynamic'))
     if int8 and act_mode not in ('dynamic', 'static'):
@@ -197,26 +223,35 @@ def run_test(cfg, model, loader, dataset, evaluator,
     for batch in loader:
         t_start = time.perf_counter()
         n_valid = len(batch['im_id'])
+        local = batch
+        if shard is not None:
+            padded, _ = mesh.pad_to_multiple(batch, shard.count)
+            local = {k: mesh.local_rows(v, shard) for k, v in padded.items()}
         dev_batch = {k: torch.as_tensor(v).to(device)
-                     for k, v in batch.items()}
+                     for k, v in local.items()}
         gt = device_preprocess(dev_batch, net_input_wh=dataset.net_input_wh)
         with torch.no_grad():
             if int8 and act_mode == 'static' and act_scales is None:
                 # static scales, calibrated on the first batch
                 act_scales = quant.calibrate_act_scales(model,
                                                         [gt['img_in']])
+                if shard is not None:
+                    names = sorted(act_scales)
+                    amax = mesh.all_reduce_max(torch.stack(
+                        [act_scales[k] for k in names]), shard)
+                    act_scales = dict(zip(names, amax.unbind()))
             with quant.quantized_int8(model, act_scales=act_scales) \
                     if int8 else contextlib.nullcontext():
                 out = model(gt['img_in'])
         thr = None
         if solver_cfg.get('rel_reproj_err', False):
             # 2 px at full-image scale
-            thr = torch.as_tensor(2.0 / np.asarray(batch['out_pix_scale']),
+            thr = torch.as_tensor(2.0 / np.asarray(local['out_pix_scale']),
                                   dtype=torch.float32, device=device)
         if sparse:
             states = inference.solve_pnp_sparse(
                 out, gt, generator, solvers=tuple(solver_cfg.solvers),
-                reproj_err=thr, device=device)
+                reproj_err=thr, device=device, global_rows=n_valid)
         else:
             states = inference.solve_pnp_dense(
                 out, gt, generator, bit_cnt=dataset.bit_cnt,
@@ -226,10 +261,10 @@ def run_test(cfg, model, loader, dataset, evaluator,
                 quantile=solver_cfg.get('quantile', 0.3),
                 seg_thresh=solver_cfg.get('seg_thresh', 0.5),
                 solvers=tuple(solver_cfg.solvers), reproj_err=thr,
-                device=device)
+                device=device, global_rows=n_valid)
         host = {}
         for name, pose7 in states.items():
-            R, t = pose7_to_RT(pose7)
+            R, t = pose7_to_RT(mesh.gather_rows(pose7, shard)[:n_valid])
             host[name] = (R.cpu().numpy(), t.cpu().numpy())   # syncs the device
         batch_time = time.perf_counter() - t_start
         total_time += batch_time

@@ -117,12 +117,14 @@ def solve_pnp_dense(out: dict, gt: dict, generator: torch.Generator | None = Non
                     point_select: str = 'quantile', quantile: float = 0.3,
                     seg_thresh: float = 0.5, solvers=('weighted',),
                     reproj_err=None, max_iter: int = 50, device=None,
-                    sample_idx: torch.Tensor | None = None) -> dict:
+                    sample_idx: torch.Tensor | None = None,
+                    global_rows: int | None = None) -> dict:
     """Returns {solver_name: pose7 (B, 7)}.
 
     Runs on `device` (CUDA unless 'cpu' is passed); the inputs are moved
-    there. `generator` draws the RANSAC samples; `sample_idx` (B, K, 6)
-    replaces that draw with given indices.
+    there. `generator` draws the RANSAC samples (a data-parallel rank's
+    for a global batch of `global_rows`, pnp/ransac.draw_samples);
+    `sample_idx` (B, K, 6) replaces that draw with given indices.
     """
     out, gt = _on_device(out, gt, device)
     d = dense_grid_outputs(out, gt, bit_cnt=bit_cnt,
@@ -133,7 +135,8 @@ def solve_pnp_dense(out: dict, gt: dict, generator: torch.Generator | None = Non
                           seg_thresh)
     thr = 3.0 if reproj_err is None else reproj_err
     rr = ransac_pnp(gt['out_K'], pts3d, pts2d, generator, valid=valid,
-                    reproj_threshold=thr, sample_idx=sample_idx)
+                    reproj_threshold=thr, sample_idx=sample_idx,
+                    global_rows=global_rows)
 
     results = {}
     if 'ransac' in solvers:
@@ -153,17 +156,20 @@ def solve_pnp_sparse(out: dict, gt: dict,
                      generator: torch.Generator | None = None, *,
                      solvers=('ransac', 'weighted'), reproj_err=None,
                      max_iter: int = 50, device=None,
-                     sample_idx: torch.Tensor | None = None) -> dict:
+                     sample_idx: torch.Tensor | None = None,
+                     global_rows: int | None = None) -> dict:
     """The sparse keypoint path: out['pts2d'] and out['pts2d_std'] (B, K, 2)
     against the model keypoints gt['pts3d'] (B, K, 3); every keypoint takes
     part (no validity mask), weighted by 1/std². Returns {solver_name:
-    pose7 (B, 7)}; `device` and `sample_idx` as in solve_pnp_dense."""
+    pose7 (B, 7)}; `device`, `sample_idx` and `global_rows` as in
+    solve_pnp_dense."""
     out, gt = _on_device(out, gt, device)
     pts2d = out['pts2d']
     inv_cov2d = 1.0 / out['pts2d_std'] ** 2
     thr = 2.0 if reproj_err is None else reproj_err
     rr = ransac_pnp(gt['out_K'], gt['pts3d'], pts2d, generator,
-                    reproj_threshold=thr, sample_idx=sample_idx)
+                    reproj_threshold=thr, sample_idx=sample_idx,
+                    global_rows=global_rows)
     results = {}
     if 'ransac' in solvers:
         results['ransac'] = rr.pose7

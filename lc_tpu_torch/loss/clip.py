@@ -5,25 +5,37 @@ lc_tpu/loss/clip.py; reference lib/utils/grad.py:5-31).
 cotangent to max_norm (global L2 over x) and hands the observed, unclipped
 norm back as the gradient of the 0-d `tap` tensor. The train step reads
 tap.grad after backward and folds it into the clipper's EMA threshold with
-`update_clipper_state`, as lc_tpu does with its custom_vjp.
+`update_clipper_state`, as lc_tpu does with its custom_vjp. Inside a
+data-parallel context (parallel/mesh.py) the norm is that of the global
+batch's cotangent, every rank's rows, as in lc_tpu's SPMD step.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import mesh
 
 
 class _GradTap(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, max_norm, tap):
         ctx.save_for_backward(max_norm)
+        ctx.shard = mesh.active()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         (max_norm,) = ctx.saved_tensors
         total = torch.linalg.vector_norm(g.reshape(-1))
+        if ctx.shard is not None:
+            # the root of the rank-summed squares; the cotangent is at the
+            # global loss's scale (each rank backpropagates its share)
+            sq = total.square().reshape(1)
+            dist.all_reduce(sq, group=ctx.shard.group)
+            total = sq.sqrt()
         coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
         return g * coef, None, total.reshape(())
 

@@ -6,7 +6,8 @@ Gray codes (zebra) and sparse keypoints.
 The binary-code histogram and the clip thresholds live in an explicit
 LossState; the observed activation-gradient norms come back as the
 gradients of 0-d tap tensors (see clip.py) and are folded in by
-`finalize_loss_state`.
+`finalize_loss_state`. Every mean over the batch is the global batch's
+inside a data-parallel context (parallel/mesh.cross_rank_mean).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from .surrogate import init_bin_histogram, seg_bce_loss, seg_l1_loss, \
     sparse_kpt_nll_loss, xyz_bin_loss
 from .targets import nn_out_to_xyz
 from ..geom.pose import pose7_to_RT
+from ..parallel.mesh import cross_rank_mean
 from ..geom.projection import gen_uv, project_apply
 
 TAP_NAMES = ('weight', 'scale', 'pts')
@@ -117,13 +119,14 @@ def _sparse_losses(cfg: LossConfig, gt: dict, out: dict, step: int) -> dict:
     pts2d, pts2d_std = out['pts2d'], out['pts2d_std']
     pose_best, K, pts3d = gt['pose_best'], gt['out_K'], gt['pts3d']
     proj = project_apply(K, pts3d, *pose7_to_RT(pose_best))
-    loss_kpts = sparse_kpt_nll_loss(pts2d, pts2d_std, proj)
+    loss_kpts = cross_rank_mean(sparse_kpt_nll_loss(pts2d, pts2d_std, proj))
     terms = {'loss_kpts': loss_kpts}
     if cfg.w_loss_pose > 0:
         lc = loss_cov_mixed(K, pose_best, pts3d, pts2d, 1.0 / pts2d_std, None,
                             bbox_3d=gt['bbox_3d'], cov_2d=cfg.cov_2d)
         f = _pose_ramp(cfg, step)
-        terms['loss_pose'] = f * lc.mean() + (1.0 - f) * loss_kpts
+        terms['loss_pose'] = f * cross_rank_mean(lc.mean()) \
+            + (1.0 - f) * loss_kpts
     return terms
 
 
@@ -143,9 +146,11 @@ def _dense_losses(cfg: LossConfig, gt: dict, out: dict, state: LossState,
             state.histogram)
     else:
         noc_msked = out['xyz_noc'] * msk_noc[..., None]
-        terms['loss_noc'] = torch.abs(noc_msked - gt['xyz_noc_tgt']).mean()
+        terms['loss_noc'] = cross_rank_mean(
+            torch.abs(noc_msked - gt['xyz_noc_tgt']).mean())
     seg_fn = seg_l1_loss if cfg.seg_loss_type.lower() == 'l1' else seg_bce_loss
-    terms['loss_seg'] = seg_fn(out['msk_vis_logits'], msk_vis[..., None])
+    terms['loss_seg'] = cross_rank_mean(
+        seg_fn(out['msk_vis_logits'], msk_vis[..., None]))
 
     # the dense LC pose loss
     weight_logits = out['xyz_weight_logits']                  # (B, h, w, 2)
@@ -189,9 +194,10 @@ def _dense_losses(cfg: LossConfig, gt: dict, out: dict, state: LossState,
                         den_inv_std2d, den_valid, bbox_3d=gt['bbox_3d'],
                         max_err_len=cfg.max_err_len, cov_2d=cfg.cov_2d)
     f = _pose_ramp(cfg, step)
-    loss_weight_seg = seg_fn(weight_logits, msk_vis[..., None].expand(
-        weight_logits.shape))
-    terms['loss_pose'] = f * lc.mean() + (1.0 - f) * loss_weight_seg
+    loss_weight_seg = cross_rank_mean(seg_fn(
+        weight_logits, msk_vis[..., None].expand(weight_logits.shape)))
+    terms['loss_pose'] = f * cross_rank_mean(lc.mean()) \
+        + (1.0 - f) * loss_weight_seg
     return terms, new_hist
 
 

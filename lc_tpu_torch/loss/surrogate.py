@@ -2,11 +2,17 @@
 the binary-code BCE with its per-bit difficulty weights, segmentation BCE
 and L1, and the sparse keypoint NLL. Channel-last layouts throughout; the
 binary-code histogram EMA is explicit state returned to the caller (the
-reference keeps it as a module buffer, losses.py:196-216)."""
+reference keeps it as a module buffer, losses.py:196-216). Inside a
+data-parallel context (parallel/mesh.py) the batch means and the
+histogram's observation are those of the global batch."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ..models.layers import at_least_f32
+from ..parallel import mesh
 
 
 def init_bin_histogram(total_bit_cnt: int, device=None) -> torch.Tensor:
@@ -23,21 +29,31 @@ def xyz_bin_loss(noc_bin_logits: torch.Tensor, noc_bin_gt: torch.Tensor,
     each bit that disagrees with the GT inside the predicted mask drives an
     EMA histogram, updated outside the graph; softmax(3·min(h, 0.51 − h))
     weights the per-bit BCE of the masked logits (reference Loss_xyz_bin,
-    losses.py:196-216). Computed in float32 whatever the logits' dtype.
+    losses.py:196-216). Computed in float32 whatever the logits' dtype
+    (float64 for float64 logits, a rounding reference's).
     Returns (loss, new histogram)."""
-    logits = noc_bin_logits.float()
+    logits = at_least_f32(noc_bin_logits)
     with torch.no_grad():
         msk_hard = msk_vis_logits > 0                        # (B, H, W, 1)
         hamm = ((logits > 0) ^ (noc_bin_gt > 0.5)) & msk_hard
-        hist_obs = hamm.sum((0, 1, 2)) / (msk_hard.sum() + 1.0)
+        shard = mesh.active()
+        if shard is None:
+            hist_obs = hamm.sum((0, 1, 2)) / (msk_hard.sum() + 1.0)
+        else:
+            # numerator and denominator summed over the ranks' rows
+            counts = torch.cat((hamm.sum((0, 1, 2)),
+                                msk_hard.sum().reshape(1))).to(logits.dtype)
+            dist.all_reduce(counts, group=shard.group)
+            hist_obs = counts[:-1] / (counts[-1] + 1.0)
         new_hist = histogram * (1.0 - momentum) \
             + hist_obs.to(histogram.dtype) * momentum
         bin_weights = torch.softmax(
             torch.minimum(new_hist, 0.51 - new_hist) * 3.0, -1)
     raw = F.binary_cross_entropy_with_logits(
-        logits * msk_hard.to(logits.dtype), noc_bin_gt.float(),
+        logits * msk_hard.to(logits.dtype), noc_bin_gt.to(logits.dtype),
         reduction='none')
-    return (raw.mean((0, 1, 2)) * bin_weights).sum(), new_hist
+    return (mesh.cross_rank_mean(raw.mean((0, 1, 2))) * bin_weights).sum(), \
+        new_hist
 
 
 def seg_bce_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

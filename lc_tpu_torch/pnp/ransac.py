@@ -22,6 +22,7 @@ import torch
 from ..geom.rotations import (axis_angle_to_matrix, matrix_to_quaternion,
                               quaternion_to_matrix)
 from ..ops.smallmat import chol_solve, jacobi_eigh_small, rot_pts
+from ..parallel import mesh
 from .epnp import _identity_pose, epnp
 
 
@@ -189,12 +190,26 @@ def _reproj_err(pose_R, pose_t, cam_K, pts3d, pts2d):
 
 
 def draw_samples(valid: torch.Tensor, num_hypotheses: int, sample_size: int,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None,
+                 global_rows: int | None = None) -> torch.Tensor:
     """`sample_size` distinct valid indices per hypothesis, (B, K, s): the
-    top-k of uniform scores, which is a uniform draw without replacement."""
+    top-k of uniform scores, which is a uniform draw without replacement.
+    Inside a data-parallel context (parallel/mesh.py) the B problems are
+    this rank's slice of a global batch of `global_rows` (B · ranks when
+    None; rows past it repeat its last, the padding of an eval batch): the
+    scores are drawn for the global batch and this slice kept, so each
+    problem sees the same draw at any number of ranks."""
     B, N = valid.shape
-    scores = torch.rand((B, num_hypotheses, N), generator=generator,
-                        device=valid.device)
+    shard = mesh.active()
+    if shard is None:
+        scores = torch.rand((B, num_hypotheses, N), generator=generator,
+                            device=valid.device)
+    else:
+        n = B * shard.count if global_rows is None else global_rows
+        rows = (torch.arange(B, device=valid.device)
+                + shard.index * B).clamp(max=n - 1)
+        scores = torch.rand((n, num_hypotheses, N), generator=generator,
+                            device=valid.device)[rows]
     scores = scores.masked_fill(~valid[:, None, :], -1.0)
     return torch.topk(scores, sample_size, dim=-1).indices
 
@@ -206,12 +221,14 @@ def ransac_pnp(cam_K: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
                num_hypotheses: int = 150, sample_size: int = 6,
                local_opt: bool = True,
                hyp_estimators: tuple = ('epnp', 'planar', 'dlt'),
-               sample_idx: torch.Tensor | None = None) -> RansacResult:
+               sample_idx: torch.Tensor | None = None,
+               global_rows: int | None = None) -> RansacResult:
     """Robust pose init for a batch of correspondence sets.
 
     cam_K: (B, 3, 3); pts3d: (B, N, 3); pts2d: (B, N, 2); valid: (B, N) mask;
     reproj_threshold: scalar or (B,) pixels; sample_idx: optional (B, K, s)
-    sample indices that replace the draw from `generator`.
+    sample indices that replace the draw from `generator`; global_rows:
+    see draw_samples.
     """
     from .solver import lm_refine_auto
 
@@ -223,7 +240,7 @@ def ransac_pnp(cam_K: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
                           device=dev).expand(B)
 
     idx = sample_idx if sample_idx is not None else draw_samples(
-        valid, num_hypotheses, sample_size, generator)
+        valid, num_hypotheses, sample_size, generator, global_rows)
     idx = idx.to(device=dev, dtype=torch.int64)
     K_h, s = idx.shape[1:]
     sub3d = torch.gather(pts3d[:, None].expand(B, K_h, N, 3), 2,

@@ -2,11 +2,14 @@
 
     python -m lc_tpu_torch.test --weight model.pth --config configs/glmo.yaml \\
         --output out --obj 1 [--opts ...] [--deterministic] [--device cpu]
+    torchrun --nproc_per_node N -m lc_tpu_torch.test ...   (sharded)
 
 --weight takes a .pth/.pt state dict in the reference layout, or a .ckpt
 written by lc_tpu_torch.train or by lc_tpu.train (model_final.ckpt,
 model_best_*.ckpt or a training checkpoint; told apart by their envelope).
-Runs on CUDA unless --device cpu is given.
+Runs on CUDA unless --device cpu is given. Under torchrun the evaluation
+is sharded over the ranks (harness.run_test), each holding every pose of
+the run; rank 0 alone writes the log file and the CSVs.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ import zipfile
 
 import torch
 
-from . import harness, resolve_device
+from . import harness
 from .eval.evaluator import csv_from_results
 from .models.weights import state_dict_from_flax
+from .parallel import mesh
 from .utils import flax_ckpt
 from .utils.checkpoint import model_state_dict
 from .utils.config import load_config
@@ -80,7 +84,10 @@ def main(argv=None):
                         help='cuda (default) or cpu')
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    # joins torchrun's process group, if any, before anything else runs
+    device = mesh.maybe_init_distributed(args.device)
+    shard = mesh.shard_of(mesh.resolve_group('auto'))
+    primary = mesh.is_primary(shard)
     if not osp.exists(args.weight):
         raise SystemExit(f'weight file "{args.weight}" not found.')
     if not args.weight.endswith(('.pth', '.pt', '.ckpt')):
@@ -92,10 +99,11 @@ def main(argv=None):
     cfg = load_config(args.config, args.opts)
     cfg.obj_ids = args.obj
 
-    os.makedirs(args.output, exist_ok=True)
     log_name = '_'.join([cfg_name, cfg.train_dataset.name, 'test',
                          ','.join(map(str, cfg.obj_ids)) + '.log'])
-    setup_logger(osp.join(args.output, log_name))
+    if primary:
+        os.makedirs(args.output, exist_ok=True)
+    setup_logger(osp.join(args.output, log_name) if primary else None)
 
     evaluator = harness.get_evaluator(cfg, device=device)
     test_set, test_loader = harness.make_datasets(cfg, train=False)
@@ -110,15 +118,19 @@ def main(argv=None):
         np.random.seed(0)
         torch.manual_seed(0)
 
-    results = harness.run_test(cfg, model, test_loader, test_set, evaluator,
-                               seed=0 if args.deterministic else 1,
-                               device=device)
+    with mesh.data_parallel(shard):
+        results = harness.run_test(cfg, model, test_loader, test_set,
+                                   evaluator,
+                                   seed=0 if args.deterministic else 1,
+                                   device=device)
 
     table = ''
     for name, res in results.items():
         table += '\n' + name + '\n' + res['tables'][0] + '\n'
     logger.info(table)
 
+    if not primary:
+        return results
     for name, text in csv_from_results(results).items():
         csv_name = '_'.join([f'{cfg_name}-{name}', cfg.train_dataset.name,
                              'test', ','.join(map(str, cfg.obj_ids)) + '.csv'])

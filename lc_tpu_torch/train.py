@@ -1,8 +1,9 @@
-"""Training entry point (counterpart of lc_tpu/train.py, on one device):
+"""Training entry point (counterpart of lc_tpu/train.py):
 
     python -m lc_tpu_torch.train --config configs/glmo.yaml --output out
         [--obj 1] [--name exp] [--ckpt path] [--resume] [--opts a.b=c ...]
         [--device cpu]
+    torchrun --nproc_per_node N -m lc_tpu_torch.train ...   (data-parallel)
 
 Trains every family: CDPN dense NOC (glmo), zebra Gray codes (max_bit_cnt:
 zlmo, zsyn; with train_dataset_1 mixed in by ratio) and sparse keypoints
@@ -14,10 +15,21 @@ checkpoint chosen on add(-s)_0.10. Runs on CUDA unless --device cpu is
 given. The run is deterministic: the loader's stream is a function of
 (seed, position) and every step's random draws come from generators seeded
 from (seed, step), so a resumed run repeats the uninterrupted one.
+
+Data-parallel under torchrun (parallel/mesh.py: NCCL on cuda:LOCAL_RANK,
+gloo with --device cpu): each rank loads, preprocesses and trains on its
+contiguous slice of every global batch (dataloader.batch_size crops), and
+computes what one process computes on the whole batch; rank 0 alone writes
+the checkpoints, metrics.jsonl, the TensorBoard scalars and the exports.
+The loop stages the next batches on the device ahead of the step
+(data/pipeline.device_prefetch). TensorBoard: `loss/<term>` at step 1 and
+every 20th, `eval/score` after each evaluation, through tensorboardX when
+it imports; metrics.jsonl is always written.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import logging
 import os
@@ -28,11 +40,12 @@ import torch
 from torch.profiler import record_function
 
 from . import harness, resolve_device
-from .data.pipeline import device_preprocess
+from .data.pipeline import device_prefetch, device_preprocess
 from .loss.loss_fn import init_loss_state, loss_state_to
 from .models import default_compute_dtype, set_compute_dtype
 from .models.weights import init_weights
 from .optim.factory import build_optimizer
+from .parallel import mesh
 from .train_step import train_step
 from .utils import seeding
 from .utils.checkpoint import Checkpoint
@@ -41,15 +54,25 @@ from .utils.logging import setup_logger
 
 logger = logging.getLogger(__name__)
 
+# batches staged on the device ahead of the step (lc_tpu's device_prefetch
+# size); 0 stages each batch when the step takes it
+PREFETCH_BATCHES = 2
+
 
 def build_training(cfg, seed: int | None = None, device=None) -> dict:
     """Wire everything on `device`; returns a dict of components. seed
     defaults to cfg.train.seed (42 when unset): one knob drives the loader's
-    shuffle, the model's init and the per-step generators."""
+    shuffle, the model's init and the per-step generators. Inside a
+    data-parallel context (parallel/mesh.py) the training loader yields
+    this rank's slice of each global batch."""
     device = resolve_device(device)
     if seed is None:
         seed = int(cfg.train.get('seed', 42))
-    train_set, train_loader = harness.make_datasets(cfg, train=True, seed=seed)
+    shard = mesh.active()
+    proc = {} if shard is None else dict(process_index=shard.index,
+                                         process_count=shard.count)
+    train_set, train_loader = harness.make_datasets(cfg, train=True,
+                                                    seed=seed, **proc)
     if not len(train_loader):
         raise ValueError(f'the training set holds {len(train_set)} samples, '
                          f'fewer than one batch of {cfg.dataloader.batch_size}')
@@ -82,20 +105,22 @@ def build_training(cfg, seed: int | None = None, device=None) -> dict:
                 num_steps=num_steps, steps_per_epoch=steps_per_epoch)
 
 
-def step_inputs(batch: dict, seed: int, step: int, device, pp_kwargs: dict,
-                dense_sample: int):
-    """The device half of a step's input: the host batch on the device, the
-    train branch of device_preprocess with the step's generator, and the
-    dense loss's sampling offset. Returns (gt, top_left)."""
-    with record_function('h2d'):
-        dev = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+def preprocess_step(dev: dict, seed: int, step: int, pp_kwargs: dict) -> dict:
+    """The train branch of device_preprocess on a batch already on the
+    device, its draws from the step's generator (for the global batch, of
+    which a data-parallel rank holds its rows)."""
+    device = next(iter(dev.values())).device
     with record_function('preprocess'):
-        gt = device_preprocess(dev, seeding.step_generator(
+        return device_preprocess(dev, seeding.step_generator(
             seed, step, seeding.STREAM_PREPROCESS, device), **pp_kwargs)
-    top_left = torch.randint(0, dense_sample, (2,),
-                             generator=seeding.step_generator(
-                                 seed, step, seeding.STREAM_STEP)).tolist()
-    return gt, top_left
+
+
+def sample_offset(seed: int, step: int, dense_sample: int) -> list:
+    """The dense loss's sampling offset of the step, the same on every
+    rank."""
+    return torch.randint(0, dense_sample, (2,),
+                         generator=seeding.step_generator(
+                             seed, step, seeding.STREAM_STEP)).tolist()
 
 
 def endless_batches(loader, start_step: int):
@@ -109,23 +134,51 @@ def endless_batches(loader, start_step: int):
         yield from loader
 
 
-def train(args, cfg, outdir: str, device=None):
-    """The training loop; returns the trained model. A loader with worker
-    processes (MPLoader) is closed when the loop ends."""
-    comps = build_training(cfg, device=device)
+def summary_writer(outdir: str):
+    """tensorboardX's SummaryWriter on outdir, or None, said once in the
+    log, when tensorboardX is not installed (metrics.jsonl has the same
+    numbers)."""
     try:
-        return _train_loop(args, cfg, outdir, comps)
-    finally:
-        close = getattr(comps['train_loader'], 'close', None)
-        if close is not None:
-            close()
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        logger.info('tensorboardX is not installed: no TensorBoard scalars; '
+                    'metrics.jsonl has them')
+        return None
+    return SummaryWriter(outdir)
 
 
-def _train_loop(args, cfg, outdir: str, comps: dict):
+def train(args, cfg, outdir: str, device=None, parallel='auto'):
+    """The training loop; returns the trained model. `parallel` (lc_tpu's
+    `mesh` argument): 'auto' is data-parallel over the default process
+    group when it holds more than one rank, None a single process, and a
+    process group is used as given (of one rank too: the data-parallel path
+    then runs). A loader with worker processes (MPLoader) is closed when
+    the loop ends."""
+    shard = mesh.shard_of(mesh.resolve_group(parallel))
+    with mesh.data_parallel(shard):
+        comps = build_training(cfg, device=device)
+        if shard is not None:
+            logger.info('data-parallel over %d ranks, %d crops a rank on %s',
+                        shard.count, cfg.dataloader.batch_size // shard.count,
+                        comps['device'])
+        writer = summary_writer(outdir) if mesh.is_primary(shard) else None
+        try:
+            return _train_loop(args, cfg, outdir, comps, writer)
+        finally:
+            close = getattr(comps['train_loader'], 'close', None)
+            if close is not None:
+                close()
+            if writer is not None:
+                writer.close()
+
+
+def _train_loop(args, cfg, outdir: str, comps: dict, writer):
     model, optimizer, scheduler = (comps['model'], comps['optimizer'],
                                    comps['scheduler'])
     loss_state, device, seed = comps['loss_state'], comps['device'], comps['seed']
     num_steps = comps['num_steps']
+    shard = mesh.active()
+    primary = mesh.is_primary(shard)
     ckpter = Checkpoint.by_step(
         osp.join(outdir, 'ckpts'),
         resume_period=cfg.train.get('ckpt_every',
@@ -165,27 +218,37 @@ def _train_loop(args, cfg, outdir: str, comps: dict):
                 'scheduler': scheduler.state_dict(),
                 'loss_state': loss_state}
 
-    batches = endless_batches(comps['train_loader'], start_step)
+    batches = itertools.islice(
+        endless_batches(comps['train_loader'], start_step),
+        num_steps - start_step)
+    staged = device_prefetch(
+        batches, lambda dev, i: preprocess_step(
+            dev, seed, start_step + i, comps['pp_kwargs']),
+        device, size=PREFETCH_BATCHES)
     metrics_path = osp.join(outdir, 'metrics.jsonl')
     step = last_step = start_step
     t0 = time.perf_counter()
     while step < num_steps:
-        batch = next(batches)
-        gt, top_left = step_inputs(batch, seed, step, device,
-                                   comps['pp_kwargs'], s)
+        gt = next(staged)
         loss_state, metrics = train_step(
             model, optimizer, scheduler, comps['loss_cfg'], loss_state, gt,
-            step, top_left, sym_aware_start=cfg.get('sym_aware_start', 0))
+            step, sample_offset(seed, step, s),
+            sym_aware_start=cfg.get('sym_aware_start', 0))
         step += 1
         if step % 20 == 0 or step == 1 or step == num_steps:
             m = {k: float(v) for k, v in metrics.items()}     # syncs the device
-            rate = (step - last_step) * len(batch['out_K']) / max(
+            rate = (step - last_step) * cfg.dataloader.batch_size / max(
                 time.perf_counter() - t0, 1e-9)
             t0, last_step = time.perf_counter(), step
             logger.info('step %d/%d  %s  (%.1f crops/s)', step, num_steps,
                         ' '.join(f'{k}={v:.4f}' for k, v in m.items()), rate)
-            with open(metrics_path, 'a') as f:
-                f.write(json.dumps(dict(step=step, **m)) + '\n')
+            if primary:
+                with open(metrics_path, 'a') as f:
+                    f.write(json.dumps(dict(step=step, **m)) + '\n')
+            # lc_tpu writes its TensorBoard scalars at step 1 and every 20th
+            if writer is not None and (step % 20 == 0 or step == 1):
+                for k, v in m.items():
+                    writer.add_scalar(f'loss/{k}', v, step)
 
         score = -1.0
         if test_every_steps and step % test_every_steps == 0 \
@@ -194,14 +257,21 @@ def _train_loop(args, cfg, outdir: str, comps: dict):
                                    comps['test_set'], comps['evaluator'],
                                    device=device)
             score = next(iter(res.values()))['avg_score']
-        ckpter.step(full_state, step=step, score=score,
-                    aux={'random_state': seeding.get_random_state()})
+            if writer is not None:
+                writer.add_scalar('eval/score', score, step)
+        if primary:
+            ckpter.step(full_state, step=step, score=score,
+                        aux={'random_state': seeding.get_random_state()})
+        if ckpter.due(step, score):
+            mesh.barrier(shard)     # no rank reads a checkpoint mid-write
 
-    ckpter.save(full_state(), step=step, score=-1.0,
-                aux={'random_state': seeding.get_random_state()})
-    # the final export is the model alone: lc_tpu_torch.test loads it
-    ckpter.finish(model.state_dict(), osp.join(outdir, 'model_final.ckpt'),
-                  osp.join(outdir, 'model_best'))
+    if primary:
+        ckpter.save(full_state(), step=step, score=-1.0,
+                    aux={'random_state': seeding.get_random_state()})
+        # the final export is the model alone: lc_tpu_torch.test loads it
+        ckpter.finish(model.state_dict(), osp.join(outdir, 'model_final.ckpt'),
+                      osp.join(outdir, 'model_best'))
+    mesh.barrier(shard)
     return model
 
 
@@ -218,7 +288,9 @@ def main(argv=None):
                         help='cuda (default) or cpu')
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    # joins torchrun's process group, if any, before anything else runs
+    device = mesh.maybe_init_distributed(args.device)
+    primary = mesh.is_primary(mesh.shard_of(mesh.resolve_group('auto')))
     cfg = load_config(args.config, args.opts)
     if args.name:
         cfg['exp_name'] = args.name
@@ -228,8 +300,9 @@ def main(argv=None):
         raise SystemExit('set exactly one of train.num_epochs, train.num_steps')
     outdir = osp.join(args.output, cfg.exp_name) + '-' + \
         '_'.join(map(str, cfg.obj_ids))
-    os.makedirs(outdir, exist_ok=True)
-    setup_logger(outdir)
+    if primary:
+        os.makedirs(outdir, exist_ok=True)
+    setup_logger(outdir if primary else None)
     return train(args, cfg, outdir, device=device)
 
 

@@ -84,11 +84,16 @@ class Checkpoint:
             _link_or_copy(path, osp.join(self.persist_dir, f'{step:09d}.ckpt'))
         return path
 
+    def due(self, step: int, score: float = -1.0) -> bool:
+        """Whether step() saves at this step: every resume_period steps, or
+        when scored."""
+        return step % self.resume_period == 0 or score >= 0
+
     def step(self, state_fn, *, step: int, score: float = -1.0,
              aux: dict | None = None):
-        """Save every resume_period steps, or when scored. `state_fn()`
-        makes the state dict, only when a save happens."""
-        if step % self.resume_period == 0 or score >= 0:
+        """Save when due(step, score). `state_fn()` makes the state dict,
+        only when a save happens."""
+        if self.due(step, score):
             return self.save(state_fn(), step=step, score=score, aux=aux)
         return None
 

@@ -201,3 +201,39 @@ def test_rotated_crop_warp_kernel_matches_plain(cuda):
     plain = warp.rotated_crop_warp(img, center, scale, rot, (64, 64),
                                    shear=warp.shear_x_reference)
     assert (out - plain).abs().max().item() <= 5e-4
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_global_batch_norm_cuda_matches_plain(cuda, dtype, tmp_path):
+    """The data-parallel BatchNorm's CUDA branch (torch's fused batch-norm
+    kernels) against its plain branch, the same values on the CPU, in a
+    one-rank gloo group: the output, the running statistics and the three
+    gradients within 1e-5 (f32) / 1e-12 (f64)."""
+    import torch.distributed as dist
+    from lc_tpu_torch.models.layers import _GlobalBatchNorm
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 8, 6, 5, generator=g, dtype=dtype) * 3 + 1
+    w = torch.rand(8, generator=g, dtype=dtype) + 0.5
+    b = torch.randn(8, generator=g, dtype=dtype)
+    cot = torch.randn(x.shape, generator=g, dtype=dtype)
+    dist.init_process_group('gloo', store=dist.FileStore(
+        str(tmp_path / 'store'), 1), rank=0, world_size=1)
+    res = []
+    try:
+        for dev in ('cpu', cuda):
+            xs, ws, bs = (t.to(dev, copy=True).requires_grad_()
+                          for t in (x, w, b))
+            rm = torch.zeros(8, dtype=dtype, device=dev)
+            rv = torch.ones(8, dtype=dtype, device=dev)
+            y = _GlobalBatchNorm.apply(xs, ws, bs, rm, rv, 0.1, 1e-5,
+                                       dist.group.WORLD, 0, 1)
+            y.backward(cot.to(dev))
+            res.append([t.detach().cpu() for t in (y, rm, rv, xs.grad,
+                                                   ws.grad, bs.grad)])
+    finally:
+        dist.destroy_process_group()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for name, plain, fused in zip(('y', 'running_mean', 'running_var', 'dx',
+                                   'dweight', 'dbias'), *res):
+        torch.testing.assert_close(fused, plain, rtol=tol, atol=tol,
+                                   msg=name)

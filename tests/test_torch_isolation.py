@@ -41,7 +41,10 @@ def test_no_reference_imports(path):
 def test_import_pulls_in_no_jax():
     code = ('import sys\n'
             'import lc_tpu_torch.harness, lc_tpu_torch.test, '
-            'lc_tpu_torch.inference, lc_tpu_torch.train\n'
+            'lc_tpu_torch.inference, lc_tpu_torch.train, '
+            'lc_tpu_torch.parallel.mesh, lc_tpu_torch.tools.gen_z, '
+            'lc_tpu_torch.tools.preflight, lc_tpu_torch.utils.vis, '
+            'lc_tpu_torch.data.mesh\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             f'{FORBIDDEN!r}]\n'
             'assert not bad, bad\n')
@@ -85,3 +88,34 @@ def test_train_cli_raises_without_cuda(tmp_path):
         cli.main(['--config', 'c.yaml', '--output', str(tmp_path)])
     with pytest.raises(RuntimeError, match='CUDA'):
         build_training(None)
+
+
+@pytest.mark.parametrize('cli', ['train', 'test'])
+def test_clis_under_torchrun_raise_without_cuda(tmp_path, monkeypatch, cli):
+    """Under torchrun's environment the train and test CLIs still refuse
+    to fall back to the CPU: they raise before joining a process group
+    unless --device cpu is given."""
+    _require_no_cuda()
+    import importlib
+    import torch.distributed as dist
+    for k, v in (('RANK', '0'), ('LOCAL_RANK', '0'), ('WORLD_SIZE', '2'),
+                 ('MASTER_ADDR', '127.0.0.1'), ('MASTER_PORT', '1')):
+        monkeypatch.setenv(k, v)
+    mod = importlib.import_module(f'lc_tpu_torch.{cli}')
+    argv = ['--config', 'c.yaml', '--output', str(tmp_path)]
+    if cli == 'test':
+        argv += ['--weight', 'w.pth', '--obj', '1']
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mod.main(argv)
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize('tool', ['gen_z', 'preflight'])
+def test_tools_are_host_only(tool):
+    """python -m lc_tpu_torch.tools.<tool> takes no --device and needs no
+    CUDA (tests/test_torch_tools.py runs them here)."""
+    import importlib
+    mod = importlib.import_module(f'lc_tpu_torch.tools.{tool}')
+    with pytest.raises(SystemExit) as e:
+        mod.main(['--help'])
+    assert e.value.code == 0

@@ -3,9 +3,14 @@ lc_tpu's on one generated BOP tree.
 
 Tolerance: none. Every host field of every batch is bit-equal, because both
 packages run the same numpy/cv2 code on the same per-row generators
-(seed, epoch, batch index, global row). lc_tpu's pool forks; the port's
-workers start from a forkserver, so the equality also shows that the
-stream does not depend on the start method.
+(seed, epoch, batch index, global row). The threaded Loader gives the same
+batches, so the stream does not depend on threads or processes.
+
+lc_tpu's pool takes the default start method, fork; here its workers start
+from a forkserver: a fork of a test process that earlier tests' torch work
+left with live thread pools can inherit one of their locks held and hang
+(this file run after tests/test_torch_quant.py and test_torch_ransac.py in
+one process did).
 """
 import numpy as np
 import pytest
@@ -15,6 +20,17 @@ from lc_tpu.data.pipeline import MPLoader as JMPLoader
 from lc_tpu.data import synthetic as jsynthetic
 from lc_tpu_torch.data.pipeline import BOPDataset, Loader, MPLoader
 from test_torch_train_step import _jcfg, tiny_cfg
+
+
+@pytest.fixture(autouse=True)
+def _pools_start_from_a_forkserver():
+    import multiprocessing
+    old = multiprocessing.get_start_method(allow_none=True)
+    multiprocessing.set_start_method('forkserver', force=True)
+    try:
+        yield
+    finally:
+        multiprocessing.set_start_method(old, force=True)
 
 
 @pytest.fixture(scope='module')

@@ -210,8 +210,9 @@ def test_train_cli_gspsyn_resume_and_test(gspsyn_tree, tmp_path,
     """python -m lc_tpu_torch.train --device cpu on configs/gspsyn.yaml cut
     to 64² in, 16² out, batch 4, 8 keypoints: three steps with an
     evaluation after step 2; a run cut after its second step and resumed
-    from its checkpoint (no histogram: None survives) repeats the third
-    step's metrics exactly; then lc_tpu_torch.test on model_final."""
+    from its checkpoint (no histogram: None survives) without device
+    prefetch repeats the third step's metrics exactly; then
+    lc_tpu_torch.test on model_final."""
     from lc_tpu_torch import test as test_cli
     from lc_tpu_torch import train as train_cli
     from lc_tpu_torch.utils.checkpoint import load_checkpoint
@@ -261,6 +262,9 @@ def test_train_cli_gspsyn_resume_and_test(gspsyn_tree, tmp_path,
     saved = load_checkpoint(str(out_b / 'gspsyn-1' / 'ckpts' /
                                 '000000002.ckpt'))['state']['loss_state']
     assert saved.histogram is None and bool(saved.weight_clip.started)
+    # the resumed run stages each batch when its step takes it (no
+    # prefetch): the same metrics
+    monkeypatch.setattr(train_cli, 'PREFETCH_BATCHES', 0)
     train_cli.main(base + ['--output', str(out_b), '--resume'])
     lines_b = [json.loads(x) for x in
                (out_b / 'gspsyn-1' / 'metrics.jsonl').read_text()

@@ -361,9 +361,11 @@ def test_train_cli_resume_and_test(tree, tmp_path, monkeypatch):
     """python -m lc_tpu_torch.train --device cpu for 3 steps, evaluating
     after step 2 (harness.run_test, whose scored checkpoint is exported as
     model_best); a run cut after its second step and resumed from its
-    checkpoint repeats the third step's metrics exactly;
+    checkpoint repeats the third step's metrics exactly, and so does the
+    loop that stages each batch when the step takes it (no prefetch);
     lc_tpu_torch.test evaluates model_final."""
     import json
+    import shutil
     from lc_tpu_torch import test as test_cli
     from lc_tpu_torch import train as train_cli
     cfg_path = tmp_path / 'tiny.yaml'
@@ -399,6 +401,16 @@ def test_train_cli_resume_and_test(tree, tmp_path, monkeypatch):
     lines_b = [json.loads(x) for x in
                (out_b / 'syn-1' / 'metrics.jsonl').read_text().splitlines()]
     assert lines_b[-1] == lines_a[-1]
+
+    shutil.rmtree(out_b)     # the runs' checkpoints hold ~0.5 GB each
+
+    monkeypatch.setattr(train_cli, 'PREFETCH_BATCHES', 0)
+    out_c = tmp_path / 'c'
+    train_cli.main(base + ['--output', str(out_c)])
+    lines_c = [json.loads(x) for x in
+               (out_c / 'syn-1' / 'metrics.jsonl').read_text().splitlines()]
+    assert lines_c == lines_a
+    shutil.rmtree(out_c)
 
     results = test_cli.main(['--weight', str(exp_a / 'model_final.ckpt'),
                              '--config', str(cfg_path), '--output',

@@ -534,9 +534,9 @@ def test_train_cli_zsyn_resume_and_test(zsyn_tree, tmp_path, monkeypatch):
     """python -m lc_tpu_torch.train --device cpu on the zsyn-shaped tree
     (RatioMixLoader, sym_aware from step 0, max_bit_cnt 3): three steps with
     an evaluation after step 2; a run cut after its second step and resumed
-    from its checkpoint repeats the third step's metrics exactly, its
-    checkpoint holding the histogram and the clip thresholds; then
-    lc_tpu_torch.test on model_final."""
+    from its checkpoint without device prefetch repeats the third step's
+    metrics exactly, its checkpoint holding the histogram and the clip
+    thresholds; then lc_tpu_torch.test on model_final."""
     from lc_tpu_torch import test as test_cli
     from lc_tpu_torch import train as train_cli
     from lc_tpu_torch.utils.checkpoint import load_checkpoint
@@ -573,6 +573,9 @@ def test_train_cli_zsyn_resume_and_test(zsyn_tree, tmp_path, monkeypatch):
     assert saved.histogram.shape == (sum(BIT_CNT),)
     assert np.abs(saved.histogram.numpy() - 0.5).max() > 0
     assert float(saved.weight_clip.max_norm) > 0
+    # the resumed run stages each batch when its step takes it (no
+    # prefetch): the same metrics
+    monkeypatch.setattr(train_cli, 'PREFETCH_BATCHES', 0)
     train_cli.main(base + ['--output', str(out_b), '--resume'])
     lines_b = [json.loads(x) for x in
                (out_b / 'zsyn-1' / 'metrics.jsonl').read_text().splitlines()]
