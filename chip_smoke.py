@@ -88,7 +88,15 @@ Phases, each of which fails the run on error:
      forward ms against bf16, and harness.run_test with int8_inference in
      both modes; every stage breakdown also reads RANSAC's device
      operations and largest allocations;
-  9. one JSON line of kernel numbers (with every path's launches, each
+  9. bench_torch.py, the port's benchmark CLI (phase_bench): its
+     headline, infer_raw, int8_static, zebra, sparse, stages, train,
+     train_trace and mfu modes in this process at reduced iterations, each
+     line with its four keys and a finite positive value, MFU in (0, 1.05]
+     (null off a card bench_torch has a peak for), the LM kernel launched
+     3 times a batch in every inference mode (2 a batch in the stage
+     budget's RANSAC prefix, 3 in its LM prefix) and no kernel in the
+     training modes; then `python bench_torch.py` alone, its line last;
+ 10. one JSON line of kernel numbers (with every path's launches, each
      gloo rank's apart), the card line, and the final
      {"ok": true, "device": ...} line.
 Imports torch, numpy, scipy, the standard library and the port only. Exits
@@ -161,6 +169,13 @@ RERUN_RTOL = 7e-4
 # and train.preprocess_step staging in line, train_step)
 TRAIN_STAGES = ('h2d', 'preprocess', 'forward', 'targets_losses', 'backward',
                 'optimizer')
+# bench_torch.py's modes phase_bench runs, the inference ones among them,
+# and their reduced chain (bench_torch.Run): 12 batches a chain
+BENCH_MODES = ('headline', 'infer_raw', 'int8_static', 'zebra', 'sparse',
+               'stages', 'train', 'train_trace', 'mfu')
+BENCH_INFERENCE = ('headline', 'infer_raw', 'int8_static', 'zebra', 'sparse')
+BENCH_RUN = dict(warmup=2, iters=5, trials=2)
+BENCH_KEYS = {'metric', 'value', 'unit', 'vs_baseline'}
 # flops per output element of the shear (source position, floor, fraction,
 # 1 - f, the two-tap lerp), for its roofline bound
 SHEAR_FLOPS_PER_ELEM = 6
@@ -2924,6 +2939,83 @@ def phase_cli_train_families(device) -> dict:
     return rep
 
 
+# --------------------------------------------------------------------------
+# phase 9: bench_torch.py, the port's benchmark CLI
+# --------------------------------------------------------------------------
+
+def bench_line_ok(out: dict, tag: str):
+    check(set(out) == BENCH_KEYS, f'bench {tag}: keys {sorted(out)}')
+
+
+def bench_mfu_ok(mfu, tag: str, device):
+    """MFU in (0, 1.05], or null where bench_torch has no peak for the
+    card."""
+    import bench_torch
+    if bench_torch.peak_ops(device, 'bf16') is None:
+        check(mfu is None, f'bench {tag}: MFU {mfu} without a known peak')
+    else:
+        check(mfu is not None and 0 < mfu <= 1.05, f'bench {tag}: MFU {mfu}')
+
+
+def phase_bench(device) -> dict:
+    """bench_torch's modes in this process at reduced iterations, the
+    kernel counts zeroed before each and read after; then the script
+    alone, as a user runs it."""
+    import ast
+    import torch
+    import bench_torch
+    rep = {}
+    for mode in BENCH_MODES:
+        run = bench_torch.Run(device, **BENCH_RUN)
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        out = bench_torch.run_mode(mode, run)
+        seconds = time.perf_counter() - t0
+        counts = kernel_counts()
+        bench_line_ok(out, mode)
+        if mode == 'mfu':
+            bench_mfu_ok(out['value'], mode, device)
+        else:
+            check(out['value'] is not None and np.isfinite(out['value'])
+                  and out['value'] > 0, f'bench {mode}: value {out["value"]}')
+        if mode == 'train_trace':
+            split = ast.literal_eval(out['metric'].split('): ', 1)[1])
+            for k in ('fwd_mfu', 'bwd_mfu'):
+                bench_mfu_ok(split[k], f'{mode} {k}', device)
+        b = run.batches
+        if mode in BENCH_INFERENCE:
+            want = 3 * b['inference']
+        elif mode == 'stages':
+            want = 2 * b['ransac'] + 3 * b['lm']
+        else:
+            want = 0
+        check(counts['lm_refine'] == want,
+              f'bench {mode}: LM kernel launched {counts["lm_refine"]} '
+              f'times, {want} expected for {dict(b)}')
+        check(counts['shear_x'] == 0,
+              f'bench {mode}: shear kernel launched {counts["shear_x"]} times')
+        rep[mode] = dict(line=out, seconds=seconds, launches=counts,
+                         batches=dict(b))
+        log(f'[bench] {mode} {seconds:.1f} s {json.dumps(out)} '
+            f'launches {counts} batches {dict(b)}')
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, 'bench_torch.py'],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    check(p.returncode == 0,
+          f'python bench_torch.py exited {p.returncode}: {p.stderr[-2000:]}')
+    last = p.stdout.strip().splitlines()[-1]
+    out = json.loads(last)
+    bench_line_ok(out, 'cli')
+    check(np.isfinite(out['value']) and out['value'] > 0,
+          f'python bench_torch.py: value {out["value"]}')
+    rep['cli_headline'] = dict(line=out, seconds=seconds)
+    log(f'[bench] python bench_torch.py {seconds:.1f} s: {last}')
+    return rep
+
+
 def descendants(pid: int) -> list[int]:
     """Every live process below `pid`, from /proc."""
     children: dict[int, list[int]] = {}
@@ -3069,6 +3161,9 @@ def run_phases(torch):
     cli_train = phase_cli_train_families(device)
     log(f'[phase] train CLI on the zebra and sparse families: '
         f'{time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    bench = phase_bench(device)
+    log(f'[phase] bench_torch.py: {time.perf_counter() - t0:.1f} s')
 
     a = lm['a_final_refine']
     # B1: the inference paths, and the evaluations of the train CLIs
@@ -3094,6 +3189,10 @@ def run_phases(torch):
     for rank, counts in dp['gloo2']['launches'].items():
         launches[f'train_cli_glmo_gloo2_{rank}'] = counts['train']['lm_refine']
         launches[f'test_cli_glmo_gloo2_{rank}'] = counts['test']['lm_refine']
+    # bench_torch.py's inference modes and stage budget, 3 a batch
+    launches.update({f'bench_{mode}': bench[mode]['launches']['lm_refine']
+                     for mode in BENCH_MODES
+                     if bench[mode]['launches']['lm_refine']})
     kernels = [dict(
         name='lm_refine', route='cuda', source='lc_tpu_torch/csrc/lm_refine.cu',
         replaces='lc_tpu/pnp/pallas_lm.py:32',

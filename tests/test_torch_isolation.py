@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no jax/flax/optax/msgpack/lc_tpu import
-anywhere in lc_tpu_torch or chip_smoke.py (lc_tpu's .ckpt files are read by
+(nor bench.py or __graft_entry__.py, which import jax) anywhere in
+lc_tpu_torch, chip_smoke.py or bench_torch.py (lc_tpu's .ckpt files are read by
 the port's own msgpack decoder), and its entry points refuse to fall back to
 the CPU when no CUDA device is present."""
 import ast
@@ -12,12 +13,13 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'lc_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'lc_tpu', 'bench',
+             '__graft_entry__')
 
 
 def _port_sources():
     files = sorted((ROOT / 'lc_tpu_torch').rglob('*.py'))
-    return files + [ROOT / 'chip_smoke.py']
+    return files + [ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py']
 
 
 def _imported_modules(path):
@@ -44,7 +46,8 @@ def test_import_pulls_in_no_jax():
             'lc_tpu_torch.inference, lc_tpu_torch.train, '
             'lc_tpu_torch.parallel.mesh, lc_tpu_torch.tools.gen_z, '
             'lc_tpu_torch.tools.preflight, lc_tpu_torch.utils.vis, '
-            'lc_tpu_torch.data.mesh\n'
+            'lc_tpu_torch.data.mesh, lc_tpu_torch.utils.profiling, '
+            'bench_torch\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             f'{FORBIDDEN!r}]\n'
             'assert not bad, bad\n')
