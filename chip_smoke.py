@@ -30,7 +30,19 @@ Phases, each of which fails the run on error:
      path's own inputs (both LO polishes and the final refine of each
      oracle's solve and of each path's last batch, over LM_SWEEP_SEEDS
      RANSAC draws), a problem outside the tolerance judged by the plain
-     version in float64 (referee);
+     version in float64 (referee); then RANSAC's hypothesis kernel
+     (minimal6, phase_minimal6) against its plain version
+     (pnp/fast_minimal.py, lc_tpu's accelerator branch) at B = 32, K = 150:
+     (a) noise-free well-spread samples, (b) samples on a plane, (c) 1 px
+     noise, made as lc_tpu's tests/test_pnp.py makes them, and (d) the
+     samples of each path's and oracle's own first RANSAC draw, each
+     estimator held to MINIMAL6_TOL, every pose finite, the kernel timed
+     (CUDA events; device time from the profiler) beside the plain version
+     and its bound (the plain version's counted f32 operations over the
+     f32 peak), with ptxas's registers and spill bytes. Every path, oracle,
+     int8 run, CLI and bench mode launches minimal6 once a ransac_pnp call,
+     and no hypothesis stage on the card reaches the generic estimators
+     (guard_generic_hypotheses);
   5. the shear kernel (B2) against its plain version at the glmo rotated
      crop's shapes, timed beside grid_sample over buffers the L2 cannot
      hold, the column pass on random per-column shifts and sizes off its
@@ -96,8 +108,10 @@ Phases, each of which fails the run on error:
      3 times a batch in every inference mode (2 a batch in the stage
      budget's RANSAC prefix, 3 in its LM prefix) and no kernel in the
      training modes; then `python bench_torch.py` alone, its line last;
- 10. one JSON line of kernel numbers (with every path's launches, each
-     gloo rank's apart), the card line, and the final
+ 10. summary lines (minimal6's sets, times, bound and spill bytes; the
+     launches of the three kernels by path), one JSON line of kernel
+     numbers (lm_refine, shear_x, minimal6, with every path's launches,
+     each gloo rank's apart), the card line, and the final
      {"ok": true, "device": ...} line.
 Imports torch, numpy, scipy, the standard library and the port only. Exits
 non-zero without a CUDA device, or outside a checkout of the repository.
@@ -147,6 +161,22 @@ TOL = dict(translation_atol=0.05, quat_dot_min=1 - 1e-5, cost_rtol=1e-3)
 # the shear kernel against its plain version: atol on 0-255 values (that of
 # tests/test_pallas_warp.py)
 SHEAR_ATOL = 5e-4
+# the minimal6 kernel against its plain version (fast_minimal), per
+# estimator (tests/test_torch_fast_minimal.py's tolerances): ok agreeing on
+# >= 99% of problems, every pose finite, and over jointly valid problems:
+# noise_free (EPnP, planar) the 99th percentile of the translation
+# difference (largest coordinate) < 0.05 mm and the 1st percentile of
+# |q·q'| > 1 - 1e-5; noisy (1 px, the paths' own samples) lc_tpu's _pin
+# bounds, median translation distance < 0.1 mm and 90th percentile < 5 mm;
+# dlt the quantiles of tests/test_torch_ransac.py:86-88 (median < 0.1 mm,
+# 90th percentile < 1 mm, 10th percentile of |q·q'| > 1 - 1e-4)
+MINIMAL6_TOL = dict(
+    noise_free=dict(ok_agree=0.99, t_p99=0.05, qdot_p01=1 - 1e-5),
+    noisy=dict(ok_agree=0.99, dist_p50=0.1, dist_p90=5.0),
+    dlt=dict(ok_agree=0.99, t_p50=0.1, t_p90=1.0, qdot_p10=1 - 1e-4))
+# the hypothesis stage's inputs of each path's and oracle's first RANSAC
+# draw (path_lm_inputs), which phase_minimal6 holds the kernel on
+HYPOTHESIS_INPUTS = {}
 TRAIN_STEPS = 6
 # Two train CLI runs on the same batches agree past their first backward
 # only within the card's run-to-run spread: the backward is not
@@ -818,10 +848,12 @@ def path_lm_inputs(tag, path, net_out, gt, thr) -> dict:
     inputs = {}
     for seed in LM_SWEEP_SEEDS:
         gen = torch.Generator(device=pts2d.device).manual_seed(seed)
-        with capture_lm_calls() as cap:
+        with capture_lm_calls() as cap, capture_hypothesis_calls() as hyp:
             rr = ransac_pnp(gt['out_K'], pts3d, pts2d, gen, valid=valid,
                             reproj_threshold=thr)
         check(len(cap.calls) == 2, f'{tag}: {len(cap.calls)} LO polishes')
+        check(len(hyp.calls) == 1, f'{tag}: {len(hyp.calls)} hypothesis stages')
+        HYPOTHESIS_INPUTS.setdefault(tag, hyp.calls[0])
         for i, call in enumerate(cap.calls):
             inputs[f'{tag}_s{seed}_lo{i + 1}'] = call
         inputs[f'{tag}_s{seed}_final'] = (
@@ -923,6 +955,7 @@ def phase_path(tag, path, device, seed: int) -> tuple:
               for e in errors), f'{tag}: non-finite poses')
     check(launches == 3 * N_BATCHES,
           f'{tag}: LM kernel launched {launches} times for {N_BATCHES} batches')
+    check_hypotheses_launched(tag, counts)
     per_crop_s = errors[0]['time']     # steady state: batches after the first
     rep.update(batches=N_BATCHES, batch_size=bs, lm_launches=launches,
                launches=counts, crops_per_s=1.0 / per_crop_s, wall_s=wall,
@@ -1282,6 +1315,7 @@ def phase_int8(tag, path, device, seed: int) -> dict:
         check(counts['lm_refine'] == 3 * N_BATCHES,
               f'int8 {tag} {mode}: LM kernel launched '
               f'{counts["lm_refine"]} times')
+        check_hypotheses_launched(f'int8 {tag} {mode}', counts)
         rep[f'run_test_{mode}'] = dict(
             crops_per_s=1.0 / errors[0]['time'], wall_s=wall,
             launches=counts, add_s_0_10=res[final]['avg_score'])
@@ -1330,7 +1364,9 @@ def phase_path_oracle(tag, path, device, limit: float) -> tuple[dict, dict]:
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     thr = rel_threshold(path, batch, device)
+    from lc_tpu_torch.pnp.minimal6_kernel import minimal6_cuda
     before = lm_refine_cuda.launches
+    before_m6 = minimal6_cuda.launches
     if sparse:
         states = inference.solve_pnp_sparse(
             out, gt, gen, solvers=path['solvers'], reproj_err=thr,
@@ -1343,6 +1379,7 @@ def phase_path_oracle(tag, path, device, limit: float) -> tuple[dict, dict]:
             quantile=path['quantile'], solvers=path['solvers'],
             reproj_err=thr, device=device)
     launches = lm_refine_cuda.launches - before
+    m6_launches = minimal6_cuda.launches - before_m6
     R, t = pose7_to_RT(states[final_solver(path)])
     ev = Evaluator(es['gts'], es['models'], es['models_info'],
                    symmetric_obj_ids=es['symmetric_obj_ids'], device=device)
@@ -1351,11 +1388,14 @@ def phase_path_oracle(tag, path, device, limit: float) -> tuple[dict, dict]:
                                   t_est=t[i].cpu().numpy()) for i in range(n)])
     metric = 'adi' if symmetric else 'add'
     diameter = es['models_info'][1]['diameter']
-    rep = dict(crops=n, lm_launches=launches, metric=metric,
+    rep = dict(crops=n, lm_launches=launches, minimal6_launches=m6_launches,
+               metric=metric,
                max_err_mm=max(e[metric] for e in errors), diameter_mm=diameter,
                limit_mm=limit * diameter)
     log(f'[{tag}_oracle] {json.dumps(rep)}')
     check(launches == 3, f'{tag} oracle launched the LM kernel {launches} times')
+    check(m6_launches == 1,
+          f'{tag} oracle launched the minimal6 kernel {m6_launches} times')
     check(rep['max_err_mm'] < limit * diameter, f'{tag} oracle poses off: {rep}')
     rep['stages'] = stage_breakdown(None, batch, device, path, out=out)
     log(f'[{tag}_oracle] stages of the solve: {json.dumps(rep["stages"])}')
@@ -1366,15 +1406,241 @@ def phase_path_oracle(tag, path, device, limit: float) -> tuple[dict, dict]:
 def kernel_counts() -> dict:
     from lc_tpu_torch.ops.warp import shear_x_cuda
     from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
+    from lc_tpu_torch.pnp.minimal6_kernel import minimal6_cuda
     return {'lm_refine': lm_refine_cuda.launches,
-            'shear_x': shear_x_cuda.launches}
+            'shear_x': shear_x_cuda.launches,
+            'minimal6': minimal6_cuda.launches}
 
 
 def zero_kernel_counts():
     from lc_tpu_torch.ops.warp import shear_x_cuda
     from lc_tpu_torch.pnp.lm_kernel import lm_refine_cuda
+    from lc_tpu_torch.pnp.minimal6_kernel import minimal6_cuda
     lm_refine_cuda.launches = 0
     shear_x_cuda.launches = 0
+    minimal6_cuda.launches = 0
+
+
+def check_hypotheses_launched(tag: str, counts: dict):
+    """Each ransac_pnp call launches the minimal6 kernel once; on an
+    inference path that is once a batch, beside the LM kernel's three
+    launches (two LO polishes, the final refine)."""
+    check(counts['minimal6'] > 0
+          and 3 * counts['minimal6'] == counts['lm_refine'],
+          f'{tag}: minimal6 launched {counts["minimal6"]} times beside '
+          f'{counts["lm_refine"]} LM launches')
+
+
+# --------------------------------------------------------------------------
+# RANSAC's hypothesis kernel (minimal6) against its plain version
+# --------------------------------------------------------------------------
+
+class capture_hypothesis_calls:
+    """Records the arguments (cam_K, sub3d, sub2d, estimators) of every
+    hypothesis stage ransac_pnp runs inside the block, in `calls`."""
+
+    def __enter__(self):
+        from lc_tpu_torch.pnp import ransac
+        self.calls = []
+        self.orig = orig = ransac.hypothesis_solver
+
+        def solver(device):
+            fn = orig(device)
+
+            def record(*a):
+                self.calls.append(a)
+                return fn(*a)
+            return record
+        ransac.hypothesis_solver = solver
+        return self
+
+    def __exit__(self, *exc):
+        from lc_tpu_torch.pnp import ransac
+        ransac.hypothesis_solver = self.orig
+
+
+def guard_generic_hypotheses():
+    """Make the generic estimators' hypothesis stage raise on a CUDA
+    tensor for the rest of the run: on the card every sample goes through
+    the minimal6 kernel."""
+    from lc_tpu_torch.pnp import ransac
+    generic = ransac.generic_hypotheses
+
+    def guarded(cam_K, *a):
+        check(not cam_K.is_cuda, 'a hypothesis stage on the card took the '
+              'generic estimators')
+        return generic(cam_K, *a)
+    ransac.generic_hypotheses = guarded
+
+
+def minimal_samples(B, Kh, noise, planar, seed, device):
+    """6-point samples as lc_tpu's tests/test_pnp.py:301-372 makes them:
+    spread in a 100 mm cube, or on a random plane, 400-600 mm in front of
+    the camera, with `noise` px of Gaussian noise. (cam_K, sub3d, sub2d,
+    estimators) on the device."""
+    import torch
+    from scipy.spatial.transform import Rotation as sciR
+    from lc_tpu_torch.pnp.fast_minimal import ESTIMATORS
+    rng = np.random.default_rng(seed)
+    K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]])
+    Kc = np.broadcast_to(K, (B, 3, 3)).copy()
+    Rs = sciR.random(B * Kh, random_state=seed + 1).as_matrix().reshape(
+        B, Kh, 3, 3)
+    ts = np.concatenate((rng.uniform(-5, 5, (B, Kh, 2)),
+                         rng.uniform(400, 600, (B, Kh, 1))), -1)
+    if planar:
+        frames = sciR.random(B * Kh, random_state=seed + 2).as_matrix(
+        ).reshape(B, Kh, 3, 3)
+        ab = rng.uniform(-50, 50, (B, Kh, 6, 2))
+        P3 = (ab[..., :1] * frames[:, :, None, :, 0]
+              + ab[..., 1:2] * frames[:, :, None, :, 1])
+    else:
+        P3 = rng.uniform(-50, 50, (B, Kh, 6, 3))
+    P3 = P3.astype(np.float32)
+    cam = np.einsum('bkij,bknj->bkni', Rs, P3) + ts[:, :, None]
+    uvw = np.einsum('bij,bknj->bkni', Kc, cam)
+    uv = uvw[..., :2] / uvw[..., 2:3] + rng.normal(0, noise, uvw[..., :2].shape)
+    return tuple(torch.tensor(np.asarray(a, np.float32), device=device)
+                 for a in (Kc, P3, uv)) + (ESTIMATORS,)
+
+
+def minimal6_agreement(name, rule, p, ok, pr, okr) -> dict:
+    """One estimator's hypotheses from the kernel (p, ok) against the plain
+    version's (pr, okr), (B, K, 7) and (B, K), held to MINIMAL6_TOL's
+    `rule`; every pose must be finite."""
+    import torch
+    both = ok & okr
+    dt = (p[..., 4:] - pr[..., 4:]).abs().amax(-1)[both].double().cpu()
+    dn = (p[..., 4:] - pr[..., 4:]).norm(dim=-1)[both].double().cpu()
+    dq = (p[..., :4] * pr[..., :4]).sum(-1).abs()[both].double().cpu()
+    # over no jointly valid problem a quantile holds vacuously
+    q = lambda x, f, none: float(torch.quantile(x, f)) if x.numel() else none  # noqa: E731
+    agr = dict(problems=int(ok.numel()), ok_kernel=float(ok.float().mean()),
+               ok_agree=float((ok == okr).float().mean()),
+               bit_equal=float((p == pr).all(-1).float().mean()),
+               finite=bool(torch.isfinite(p).all()),
+               max_abs_err=float((p - pr).abs()[both].max())
+               if bool(both.any()) else 0.0,
+               t_p50=q(dt, 0.5, 0.0), t_p90=q(dt, 0.9, 0.0),
+               t_p99=q(dt, 0.99, 0.0), dist_p50=q(dn, 0.5, 0.0),
+               dist_p90=q(dn, 0.9, 0.0), qdot_p01=q(dq, 0.01, 1.0),
+               qdot_p10=q(dq, 0.1, 1.0), rule=rule)
+    tol = MINIMAL6_TOL[rule]
+    held = agr['finite'] and agr['ok_agree'] >= tol['ok_agree']
+    if rule == 'dlt':
+        held &= (agr['t_p50'] < tol['t_p50'] and agr['t_p90'] < tol['t_p90']
+                 and agr['qdot_p10'] > tol['qdot_p10'])
+    elif rule == 'noise_free':
+        held &= agr['t_p99'] < tol['t_p99'] and agr['qdot_p01'] > tol['qdot_p01']
+    else:
+        held &= (agr['dist_p50'] < tol['dist_p50']
+                 and agr['dist_p90'] < tol['dist_p90'])
+    check(held, f'minimal6 kernel vs plain, {name}: {agr}')
+    return agr
+
+
+def minimal6_bound_ms(args, ops) -> tuple[float, str]:
+    """Least time for this call: the bytes (inputs read once, pose and ok
+    written once) over HBM bandwidth against the f32 operations of the
+    plain version (ops per problem of each estimator named, times the
+    problems) over the f32 non-tensor peak; the larger wins."""
+    cam_K, sub3d, sub2d, est = args
+    P = sub3d.shape[0] * sub3d.shape[1]
+    nbytes = sum(a.numel() * a.element_size() for a in (cam_K, sub3d, sub2d))
+    nbytes += len(est) * P * (7 * 4 + 1)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = P * sum(ops[e] for e in est) / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def minimal6_case(name, args, rules, ops, plain_reps: int = 1) -> dict:
+    """The kernel against the plain version on one set of samples (each
+    estimator held to its rule in `rules`, or only reported where it has
+    none), timed beside its bound; the plain version's time over
+    `plain_reps` calls after the comparison's."""
+    import torch
+    from lc_tpu_torch.pnp import fast_minimal
+    from lc_tpu_torch.pnp.minimal6_kernel import minimal6_cuda
+    pose, ok = minimal6_cuda(*args)
+    torch.cuda.synchronize()
+    pr, okr = fast_minimal.minimal6(*args)
+    check(pose.shape == pr.shape and ok.shape == okr.shape,
+          f'minimal6 {name}: shapes {tuple(pose.shape)} {tuple(pr.shape)}')
+    B, Kh = args[1].shape[:2]
+    rep = dict(B=B, K=Kh, estimators=list(args[3]))
+    for e, est in enumerate(args[3]):
+        sl = slice(e * Kh, (e + 1) * Kh)
+        rule = rules.get(est)
+        agr = minimal6_agreement(f'{name} {est}', rule or 'noisy',
+                                 pose[:, sl], ok[:, sl], pr[:, sl], okr[:, sl])
+        if rule is None:
+            agr['rule'] = 'reported only'
+        rep[est] = agr
+    rep['ms'] = median_call_ms(lambda: minimal6_cuda(*args))
+    rep['device_ms'] = kernel_device_ms(lambda: minimal6_cuda(*args),
+                                        'minimal6_kernel', reps=20)
+    rep['plain_ms'] = time_ms(lambda: fast_minimal.minimal6(*args),
+                              reps=plain_reps, warmup=0)
+    rep['bound_ms'], rep['bound_by'] = minimal6_bound_ms(args, ops)
+    rep['ops_per_call'] = B * Kh * sum(ops[e] for e in args[3])
+    return rep
+
+
+def ptxas_summary(log_text: str) -> dict:
+    """Registers, stack frame and spill bytes of each function in an
+    `nvcc -Xptxas -v` log, by mangled name."""
+    import re
+    out, name = {}, None
+    for line in (log_text or '').splitlines():
+        m = re.search(r'(?:Compiling entry function|Function properties '
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and name:
+            out[name].update(stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            out[name]['registers'] = int(m.group(1))
+    return out
+
+
+def phase_minimal6(device) -> dict:
+    """The minimal6 kernel against its plain version (fast_minimal) on the
+    card at the main paths' B = 32, K = 150: (a) noise-free well-spread
+    samples, (b) samples on a plane, (c) 1 px noise, and (d) the samples,
+    cameras and estimators of each path's and oracle's own RANSAC call
+    (HYPOTHESIS_INPUTS), each timed beside its bound."""
+    from lc_tpu_torch import cuda_build
+    from lc_tpu_torch.pnp.minimal6_kernel import ops_per_problem
+    ops = ops_per_problem()
+    log(f'[minimal6] f32 operations a problem (fast_minimal, counted): '
+        f'{json.dumps(ops)}')
+    B, Kh = GLMO['batch_size'], 150
+    sets = {
+        'a_noise_free': (minimal_samples(B, Kh, 0.0, False, 0, device),
+                         dict(epnp='noise_free', dlt='dlt')),
+        'b_planar': (minimal_samples(B, Kh, 0.0, True, 10, device),
+                     dict(planar='noise_free')),
+        'c_1px': (minimal_samples(B, Kh, 1.0, False, 20, device),
+                  dict(epnp='noisy', dlt='dlt')),
+    }
+    for tag, args in HYPOTHESIS_INPUTS.items():
+        sets[f'd_{tag}'] = (args, dict(epnp='noisy', planar='noisy',
+                                       dlt='dlt'))
+    rep = dict(ops_per_problem=ops, tolerance=MINIMAL6_TOL,
+               ptxas=ptxas_summary(cuda_build.build_logs.get('minimal6')))
+    log(f'[minimal6] ptxas: {json.dumps(rep["ptxas"])}')
+    for name, (args, rules) in sets.items():
+        rep[name] = minimal6_case(name, args, rules, ops,
+                                  plain_reps=3 if name == 'a_noise_free' else 1)
+        log(f'[minimal6] {name}: {json.dumps(rep[name])}')
+    check(len(sets) == 9, f'minimal6: {len(sets)} sample sets, 9 expected')
+    return rep
 
 
 # --------------------------------------------------------------------------
@@ -1898,6 +2164,7 @@ def phase_cli(device) -> dict:
         check(counts['lm_refine'] == 3,
               f'train CLI: LM kernel launched {counts["lm_refine"]} times in '
               'one evaluation of one batch (expected 3)')
+        check_hypotheses_launched('train CLI', counts)
         best = [f for f in os.listdir(exp) if f.startswith('model_best_3_')]
         check(len(best) == 1, 'no scored checkpoint exported')
         t0 = time.perf_counter()
@@ -1994,6 +2261,7 @@ def cli_train_mploader(cfg_path: str, tmp: str, threaded: list,
           f'MPLoader train CLI metrics: {lines}')
     check(counts['shear_x'] == 6 * TRAIN_STEPS and counts['lm_refine'] == 3,
           f'MPLoader train CLI launches: {counts}')
+    check_hypotheses_launched('MPLoader train CLI', counts)
     best = [f for f in os.listdir(exp) if f.startswith('model_best_3_')]
     check(len(best) == 1, 'MPLoader train CLI: no step-3 checkpoint')
     out2 = os.path.join(tmp, 'resumed_mp')
@@ -2472,7 +2740,8 @@ def phase_data_parallel(cfg_path: str, tmp: str, plain: dict, device,
     finally:
         train_cli.PREFETCH_BATCHES = saved
     inline_counts = kernel_counts()
-    check(inline_counts == {'lm_refine': 3, 'shear_x': 6 * TRAIN_STEPS},
+    check(inline_counts == {'lm_refine': 3, 'shear_x': 6 * TRAIN_STEPS,
+                           'minimal6': 1},
           f'train CLI without prefetch: launches {inline_counts}')
     inline = steps_report(rec, bs)
     check(inline.pop('inputs') == plain['inputs'],
@@ -2511,7 +2780,8 @@ def phase_data_parallel(cfg_path: str, tmp: str, plain: dict, device,
     finally:
         dist.destroy_process_group()
     del model
-    check(counts == {'lm_refine': 3, 'shear_x': 6 * TRAIN_STEPS},
+    check(counts == {'lm_refine': 3, 'shear_x': 6 * TRAIN_STEPS,
+                     'minimal6': 1},
           f'NCCL one-rank train CLI launches: {counts}')
     a.update(launches=counts, f64_step=f64,
              gaps=held_to_plain(a['steps'], plain['steps'], 'nccl1'))
@@ -2523,6 +2793,7 @@ def phase_data_parallel(cfg_path: str, tmp: str, plain: dict, device,
     check(len(res['weighted']['errors']) == 8
           and a['test_launches']['lm_refine'] == 3,
           f'test CLI on the NCCL run: {a["test_launches"]}')
+    check_hypotheses_launched('test CLI on the NCCL run', a['test_launches'])
     rep['nccl1'] = a
     log(f'[dp_nccl1] {json.dumps(a)}')
 
@@ -2559,12 +2830,15 @@ def phase_data_parallel(cfg_path: str, tmp: str, plain: dict, device,
                                 'gloo2'))
     for r, x in enumerate(ranks):
         check(x['train_launches'] == {'lm_refine': 3,
-                                      'shear_x': 6 * TRAIN_STEPS},
+                                      'shear_x': 6 * TRAIN_STEPS,
+                                      'minimal6': 1},
               f'gloo rank {r} train CLI launches: {x["train_launches"]}')
         check(x['resumed_launches']['shear_x'] == 6 * (TRAIN_STEPS - 3),
               f'gloo rank {r} resumed launches: {x["resumed_launches"]}')
         check(x['test_launches']['lm_refine'] == 3,
               f'gloo rank {r} test CLI launches: {x["test_launches"]}')
+        check_hypotheses_launched(f'gloo rank {r} test CLI',
+                                  x['test_launches'])
     check(not r1['written'] and not r1['made_dirs']
           and any(w.endswith('metrics.jsonl') for w in r0['written']),
           f'files written: rank 0 {r0["written"]}, rank 1 {r1["written"]}; '
@@ -2763,6 +3037,7 @@ def phase_cli_families(device) -> dict:
             check(counts['lm_refine'] == 3 * N_BATCHES,
                   f'{name} test CLI: LM kernel launched '
                   f'{counts["lm_refine"]} times in {N_BATCHES} batches')
+            check_hypotheses_launched(f'{name} test CLI', counts)
             rep[name] = dict(wall_s=wall, crops=N_BATCHES * bs,
                              launches=counts, solvers=sorted(solvers),
                              add_s_0_10={k: v['avg_score']
@@ -2874,6 +3149,7 @@ def phase_cli_train_families(device) -> dict:
                   f'{name} train CLI: LM kernel launched '
                   f'{counts["lm_refine"]} times in one evaluation of one '
                   'batch (expected 3)')
+            check_hypotheses_launched(f'{name} train CLI', counts)
             best = [f for f in os.listdir(exp)
                     if f.startswith('model_best_3_')]
             check(len(best) == 1, f'{name}: no scored checkpoint exported')
@@ -2983,15 +3259,22 @@ def phase_bench(device) -> dict:
             for k in ('fwd_mfu', 'bwd_mfu'):
                 bench_mfu_ok(split[k], f'{mode} {k}', device)
         b = run.batches
+        # one RANSAC call a batch, with its 2 LO polishes, and the final
+        # refine; the stage budget's prefixes: hyp (RANSAC without LO),
+        # ransac, lm
         if mode in BENCH_INFERENCE:
-            want = 3 * b['inference']
+            want, want_m6 = 3 * b['inference'], b['inference']
         elif mode == 'stages':
             want = 2 * b['ransac'] + 3 * b['lm']
+            want_m6 = b['hyp'] + b['ransac'] + b['lm']
         else:
-            want = 0
+            want = want_m6 = 0
         check(counts['lm_refine'] == want,
               f'bench {mode}: LM kernel launched {counts["lm_refine"]} '
               f'times, {want} expected for {dict(b)}')
+        check(counts['minimal6'] == want_m6,
+              f'bench {mode}: minimal6 kernel launched {counts["minimal6"]} '
+              f'times, {want_m6} expected for {dict(b)}')
         check(counts['shear_x'] == 0,
               f'bench {mode}: shear kernel launched {counts["shear_x"]} times')
         rep[mode] = dict(line=out, seconds=seconds, launches=counts,
@@ -3105,6 +3388,7 @@ def run_phases(torch):
     log(f'[setup] python {sys.version.split()[0]} torch {torch.__version__} '
         f'cuda {torch.version.cuda} card {card}; os.cpu_count() '
         f'{os.cpu_count()}, usable CPUs {len(os.sched_getaffinity(0))}')
+    guard_generic_hypotheses()
     t0 = time.perf_counter()
     cuda_build.build_all()
     log(f'[setup] kernels built in {time.perf_counter() - t0:.1f} s')
@@ -3141,6 +3425,9 @@ def run_phases(torch):
     log(f'[phase] LM kernel on the paths\' own inputs: '
         f'{time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
+    m6 = phase_minimal6(device)
+    log(f'[phase] minimal6 kernel vs plain: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
     shear = phase_shear(device)
     log(f'[phase] shear kernel vs plain: {time.perf_counter() - t0:.1f} s')
     trains = {}
@@ -3166,33 +3453,48 @@ def run_phases(torch):
     log(f'[phase] bench_torch.py: {time.perf_counter() - t0:.1f} s')
 
     a = lm['a_final_refine']
-    # B1: the inference paths, and the evaluations of the train CLIs
-    launches = {tag: rep['lm_launches'] for tag, rep in paths.items()}
-    launches.update({f'int8_{tag}_{mode}':
-                     rep[f'run_test_{mode}']['launches']['lm_refine']
-                     for tag, rep in int8.items()
-                     for mode in ('dynamic', 'static')})
-    launches['train_cli_glmo'] = cli['launches']['lm_refine']
-    launches['train_cli_glmo_mploader'] = \
-        cli['mploader_train_cli']['launches']['lm_refine']
-    launches.update({f'test_cli_glmo_{fmt}':
-                     cli['lc_tpu_ckpt'][f'{fmt}_launches']['lm_refine']
-                     for fmt in ('ckpt', 'pth')})
-    launches.update({f'train_cli_{k}': v['launches']['lm_refine']
-                     for k, v in cli_train.items()})
-    # the data-parallel CLIs: one NCCL rank, and each of two gloo ranks
     dp = cli['data_parallel']
-    launches['train_cli_glmo_no_prefetch'] = \
-        dp['no_prefetch']['launches']['lm_refine']
-    launches['train_cli_glmo_nccl1'] = dp['nccl1']['launches']['lm_refine']
-    launches['test_cli_glmo_nccl1'] = dp['nccl1']['test_launches']['lm_refine']
-    for rank, counts in dp['gloo2']['launches'].items():
-        launches[f'train_cli_glmo_gloo2_{rank}'] = counts['train']['lm_refine']
-        launches[f'test_cli_glmo_gloo2_{rank}'] = counts['test']['lm_refine']
-    # bench_torch.py's inference modes and stage budget, 3 a batch
-    launches.update({f'bench_{mode}': bench[mode]['launches']['lm_refine']
-                     for mode in BENCH_MODES
-                     if bench[mode]['launches']['lm_refine']})
+
+    def ransac_launches(kernel: str) -> dict:
+        """The launches of a RANSAC kernel (lm_refine, minimal6) on every
+        path that runs ransac_pnp: the inference paths, int8, the
+        evaluations of the train CLIs, the test CLIs, the data-parallel
+        CLIs (one NCCL rank, and each of two gloo ranks), and
+        bench_torch.py's inference modes and stage budget."""
+        out = {tag: rep['launches'][kernel] for tag, rep in paths.items()}
+        out.update({f'int8_{tag}_{mode}':
+                    rep[f'run_test_{mode}']['launches'][kernel]
+                    for tag, rep in int8.items()
+                    for mode in ('dynamic', 'static')})
+        out['train_cli_glmo'] = cli['launches'][kernel]
+        out['train_cli_glmo_mploader'] = \
+            cli['mploader_train_cli']['launches'][kernel]
+        out.update({f'test_cli_glmo_{fmt}':
+                    cli['lc_tpu_ckpt'][f'{fmt}_launches'][kernel]
+                    for fmt in ('ckpt', 'pth')})
+        out.update({f'train_cli_{k}': v['launches'][kernel]
+                    for k, v in cli_train.items()})
+        out['train_cli_glmo_no_prefetch'] = \
+            dp['no_prefetch']['launches'][kernel]
+        out['train_cli_glmo_nccl1'] = dp['nccl1']['launches'][kernel]
+        out['test_cli_glmo_nccl1'] = dp['nccl1']['test_launches'][kernel]
+        for rank, counts in dp['gloo2']['launches'].items():
+            out[f'train_cli_glmo_gloo2_{rank}'] = counts['train'][kernel]
+            out[f'test_cli_glmo_gloo2_{rank}'] = counts['test'][kernel]
+        out.update({f'bench_{mode}': bench[mode]['launches'][kernel]
+                    for mode in BENCH_MODES
+                    if bench[mode]['launches'][kernel]})
+        return out
+
+    # B1: 3 a batch (2 LO polishes, the final refine)
+    launches = ransac_launches('lm_refine')
+    # minimal6: once a ransac_pnp call
+    m6_launches = ransac_launches('minimal6')
+    for tag, n in m6_launches.items():
+        if not tag.startswith('bench_'):   # phase_bench holds its own
+            check(n > 0 and 3 * n == launches[tag],
+                  f'{tag}: minimal6 launched {n} times beside '
+                  f'{launches[tag]} LM launches')
     kernels = [dict(
         name='lm_refine', route='cuda', source='lc_tpu_torch/csrc/lm_refine.cu',
         replaces='lc_tpu/pnp/pallas_lm.py:32',
@@ -3228,6 +3530,32 @@ def run_phases(torch):
         ms=x['ms'], plain_ms=x['plain_ms'], bound_ms=x['bound_ms'],
         bound_by=x['bound_by'], library_ms=x['library_ms'],
         tolerance=dict(atol=SHEAR_ATOL), cases=shear))
+    m = m6['a_noise_free']
+    kernels.append(dict(
+        name='minimal6', route='cuda', source='lc_tpu_torch/csrc/minimal6.cu',
+        replaces='lc_tpu/pnp/fast_minimal.py:213',
+        launches=sum(m6_launches.values()), launches_by_path=m6_launches,
+        max_abs_err=max(c[e]['max_abs_err'] for c in m6.values()
+                        if isinstance(c, dict) and 'estimators' in c
+                        for e in c['estimators']),
+        ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
+        bound_by=m['bound_by'], library_ms=None,
+        tolerance=MINIMAL6_TOL, cases=m6))
+    log('[summary] minimal6 (RANSAC hypotheses, one launch a ransac_pnp '
+        f'call) on {card}: ptxas {json.dumps(m6["ptxas"])}')
+    for name, c in m6.items():
+        if isinstance(c, dict) and 'estimators' in c:
+            log(f'[summary] minimal6 {name} (B={c["B"]}, K={c["K"]}): ms '
+                f'{c["ms"]:.4f}, device ms {c["device_ms"]}, plain ms '
+                f'{c["plain_ms"]:.2f}, bound ms {c["bound_ms"]:.5f} '
+                f'({c["bound_by"]}); ' + '; '.join(
+                    f'{e} ok {c[e]["ok_kernel"]:.3f}, ok agree '
+                    f'{c[e]["ok_agree"]:.4f}, bit-equal {c[e]["bit_equal"]:.4f}'
+                    f', max abs err {c[e]["max_abs_err"]:.3g}'
+                    for e in c['estimators']))
+    log(f'[summary] launches by path, LM (B1) {json.dumps(launches)}; '
+        f'minimal6 {json.dumps(m6_launches)}; shear (B2) '
+        f'{json.dumps(shear_launches)}')
     return kernels, card
 
 

@@ -50,9 +50,14 @@
 //    registers on the same inputs, so the loop's exit is uniform without a
 //    flag in shared memory. What remains of each iteration is this chain of
 //    IEEE divisions and dependent multiply-adds.
-// IEEE division (no fast-math), for parity with the plain version.
+// IEEE division (no fast-math) and no multiply-add contraction
+// (-fmad=false, cuda_build.EXTRA_FLAGS), for parity with the plain version:
+// contracted, the kernel stopped an LO polish of the sparse path 0.073 mm
+// from the float64 referee on a problem where ten float32 runs of the
+// plain version lay within 0.023 mm of it (chip_smoke's referee).
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
+//        -Xcompiler -fPIC
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

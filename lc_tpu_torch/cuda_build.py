@@ -22,7 +22,11 @@ BUILD_DIR = osp.join(osp.dirname(osp.abspath(__file__)), 'build')
 # division and square root.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
-SOURCES = ('lm_refine', 'shear_x')
+SOURCES = ('lm_refine', 'shear_x', 'minimal6')
+# per-source flags: the LM refiner and the minimal-sample solvers round
+# every multiply and add on its own, as their plain versions do (no
+# multiply-add contraction; see the sources' notes)
+EXTRA_FLAGS = {'lm_refine': ('-fmad=false',), 'minimal6': ('-fmad=false',)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -38,9 +42,13 @@ def find_nvcc() -> str:
                        'the CUDA kernels build from source at first use')
 
 
+def flags(name: str) -> list[str]:
+    return [*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ())]
+
+
 def library_path(name: str) -> str:
     with open(osp.join(CSRC, f'{name}.cu'), 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + ' '.join(flags(name)).encode())
     return osp.join(BUILD_DIR, f'lib{name}_{digest.hexdigest()[:12]}.so')
 
 
@@ -50,7 +58,7 @@ def _start(name: str):
         return out, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, osp.join(CSRC, f'{name}.cu')]
+    cmd = [find_nvcc(), *flags(name), '-o', tmp, osp.join(CSRC, f'{name}.cu')]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp, cmd)

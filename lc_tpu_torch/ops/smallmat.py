@@ -139,6 +139,13 @@ def _orthonormalize_cols(X: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+def start_basis(n: int, k: int) -> np.ndarray:
+    """lc_tpu's deterministic start basis of the shifted inverse subspace
+    iteration: the Q factor of a (n, k) Gaussian from default_rng(7), float64
+    (lc_tpu/ops/smallmat.py, lc_tpu/pnp/fast_minimal.py)."""
+    return np.linalg.qr(np.random.default_rng(7).normal(size=(n, k)))[0]
+
+
 def smallest_eigvecs(A: torch.Tensor, k: int, iters: int = 6
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The k smallest eigenpairs of symmetric PSD A (..., n, n) by shifted
@@ -150,9 +157,8 @@ def smallest_eigvecs(A: torch.Tensor, k: int, iters: int = 6
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     L, info = torch.linalg.cholesky_ex(A + shift * eye)
     L = torch.where((info == 0)[..., None, None], L, eye)
-    X0 = np.linalg.qr(np.random.default_rng(7).normal(size=(n, k)))[0]
-    X = torch.as_tensor(X0, dtype=A.dtype, device=A.device).expand(
-        A.shape[:-2] + (n, k))
+    X = torch.as_tensor(start_basis(n, k), dtype=A.dtype,
+                        device=A.device).expand(A.shape[:-2] + (n, k))
     for _ in range(iters):
         X = _orthonormalize_cols(torch.cholesky_solve(X, L))
     T = X.transpose(-1, -2) @ A @ X

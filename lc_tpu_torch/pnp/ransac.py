@@ -1,13 +1,20 @@
 """Batched RANSAC PnP initializer — the cv2.solvePnPRansac replacement
-(counterpart of lc_tpu/pnp/ransac.py, generic-estimator branch).
+(counterpart of lc_tpu/pnp/ransac.py).
 
 Every minimal sample is solved by three estimators with complementary
 degeneracy regimes (EPnP, the planar homography, the ridge DLT), all
 competing in one consensus pool scored on a ≤256-point subset of the valid
-points. The winner goes through threshold-annealed local optimization: EPnP,
-planar, DLT and planar-flip refits on the 2×-threshold support, then a short
-LM polish (10 iterations, the fused kernel on the card) in each of the two
-rounds, each candidate kept only if it lowers the MSAC score.
+points. The hypothesis stage branches on the device as lc_tpu's does on its
+backend (lc_tpu/pnp/ransac.py:305): on the card every sample is solved by
+lc_tpu's accelerator branch, fast_minimal's scalar-struct solvers, as one
+CUDA kernel (pnp/minimal6_kernel.py); on the CPU by lc_tpu's CPU branch, the
+generic estimators in their cheap hypothesis mode (`generic_hypotheses`).
+The two branches agree statistically, not bit for bit. The winner goes
+through threshold-annealed local optimization: EPnP, planar, DLT and
+planar-flip refits on the 2×-threshold support, then a short LM polish (10
+iterations, the fused kernel on the card) in each of the two rounds, each
+candidate kept only if it lowers the MSAC score; the refits use the generic
+estimators on both devices, as lc_tpu's do.
 
 Sampling: lc_tpu draws its samples with jax.random (Gumbel top-k), whose bits
 torch cannot reproduce. Here samples come from a `torch.Generator`, or from
@@ -214,6 +221,37 @@ def draw_samples(valid: torch.Tensor, num_hypotheses: int, sample_size: int,
     return torch.topk(scores, sample_size, dim=-1).indices
 
 
+def generic_hypotheses(cam_K: torch.Tensor, sub3d: torch.Tensor,
+                       sub2d: torch.Tensor, estimators: tuple
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """lc_tpu's CPU branch of the hypothesis stage (lc_tpu/pnp/ransac.py:
+    305-313): the generic estimators in their cheap hypothesis mode on
+    cam_K (B, 3, 3), sub3d (B, K, s, 3), sub2d (B, K, s, 2), concatenated
+    in the order epnp, planar, dlt: (pose_h (B, nE·K, 7), ok_h (B, nE·K))."""
+    Kb = cam_K[:, None]
+    cand_h = []
+    if 'epnp' in estimators:
+        cand_h.append(epnp(Kb, sub3d, sub2d, gn_iters=4, eig_iters=3,
+                           cp_sweeps=4))
+    if 'planar' in estimators:
+        cand_h.append(planar_pnp(Kb, sub3d, sub2d, pca_sweeps=4))
+    if 'dlt' in estimators:
+        cand_h.append(dlt_pnp(Kb, sub3d, sub2d))
+    return (torch.cat([c[0] for c in cand_h], 1),
+            torch.cat([c[1] for c in cand_h], 1))
+
+
+def hypothesis_solver(device: torch.device):
+    """The hypothesis stage's solver for tensors on `device`, as lc_tpu
+    picks it by backend: the card runs the accelerator branch in the
+    minimal6 kernel, the CPU the generic estimators. Both take
+    (cam_K, sub3d, sub2d, estimators)."""
+    if device.type == 'cuda':
+        from .minimal6_kernel import minimal6_cuda
+        return minimal6_cuda
+    return generic_hypotheses
+
+
 def ransac_pnp(cam_K: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
                generator: torch.Generator | None = None,
                valid: torch.Tensor | None = None, *,
@@ -248,17 +286,8 @@ def ransac_pnp(cam_K: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
     sub2d = torch.gather(pts2d[:, None].expand(B, K_h, N, 2), 2,
                          idx[..., None].expand(B, K_h, s, 2))
 
-    Kb = cam_K[:, None]
-    cand_h = []
-    if 'epnp' in hyp_estimators:
-        cand_h.append(epnp(Kb, sub3d, sub2d, gn_iters=4, eig_iters=3,
-                           cp_sweeps=4))
-    if 'planar' in hyp_estimators:
-        cand_h.append(planar_pnp(Kb, sub3d, sub2d, pca_sweeps=4))
-    if 'dlt' in hyp_estimators:
-        cand_h.append(dlt_pnp(Kb, sub3d, sub2d))
-    pose_h = torch.cat([c[0] for c in cand_h], 1)            # (B, nE·K, 7)
-    ok_h = torch.cat([c[1] for c in cand_h], 1)
+    pose_h, ok_h = hypothesis_solver(dev)(                   # (B, nE·K, 7)
+        cam_K.contiguous(), sub3d, sub2d, hyp_estimators)
 
     # winner selection on ≤256 points drawn evenly from the valid ones: the
     # j-th target is the (tgt_j+1)-th valid point
@@ -276,7 +305,8 @@ def ransac_pnp(cam_K: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
     else:
         p3_s, p2_s, v_s = pts3d, pts2d, valid
     R_h = quaternion_to_matrix(pose_h[..., :4])
-    err = _reproj_err(R_h, pose_h[..., 4:7], Kb, p3_s[:, None], p2_s[:, None])
+    err = _reproj_err(R_h, pose_h[..., 4:7], cam_K[:, None], p3_s[:, None],
+                      p2_s[:, None])
     inl = (err < thr[:, None, None]) & v_s[:, None, :]
     counts = torch.where(ok_h, inl.sum(-1), -1)
     best = torch.argmax(counts, -1)

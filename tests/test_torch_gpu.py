@@ -1,11 +1,11 @@
-"""Card-only tests of the port's CUDA kernel against its plain version. They
-import no jax, so they also run on a machine without it:
+"""Card-only tests of the port's CUDA kernels against their plain versions.
+They import no jax, so they also run on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Without a CUDA device every test here skips. Tolerance (that of
+Without a CUDA device every test here skips. LM tolerance (that of
 tests/test_pallas_lm.py): translation atol 0.05 mm, |q·q'| > 1 − 1e-5, cost
-rtol 1e-3, identical invalid flags."""
+rtol 1e-3, identical invalid flags; the others' at their sections."""
 import numpy as np
 import pytest
 import torch
@@ -237,3 +237,109 @@ def test_global_batch_norm_cuda_matches_plain(cuda, dtype, tmp_path):
                                    'dweight', 'dbias'), *res):
         torch.testing.assert_close(fused, plain, rtol=tol, atol=tol,
                                    msg=name)
+
+
+# ---------------------------------------------------------------------------
+# minimal6: RANSAC's hypothesis kernel (csrc/minimal6.cu) against its plain
+# version, fast_minimal.minimal6, on the card; the tolerances of
+# tests/test_torch_fast_minimal.py
+# ---------------------------------------------------------------------------
+
+def minimal_samples(B, Kh, noise, planar, seed, device):
+    """6-point samples as tests/test_pnp.py:301-372 makes them: spread in a
+    100 mm cube, or on a random plane, 400-600 mm in front of the camera,
+    with `noise` px of Gaussian noise. (cam_K, sub3d, sub2d) on device."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]], np.float32)
+    Kc = np.broadcast_to(K, (B, 3, 3)).copy()
+    Rs = sciR.random(B * Kh, random_state=seed + 1).as_matrix().reshape(
+        B, Kh, 3, 3)
+    ts = np.concatenate((rng.uniform(-5, 5, (B, Kh, 2)),
+                         rng.uniform(400, 600, (B, Kh, 1))), -1)
+    if planar:
+        frames = sciR.random(B * Kh, random_state=seed + 2).as_matrix(
+        ).reshape(B, Kh, 3, 3)
+        ab = rng.uniform(-50, 50, (B, Kh, 6, 2))
+        P3 = (ab[..., :1] * frames[:, :, None, :, 0]
+              + ab[..., 1:2] * frames[:, :, None, :, 1])
+    else:
+        P3 = rng.uniform(-50, 50, (B, Kh, 6, 3))
+    P3 = P3.astype(np.float32)
+    cam = np.einsum('bkij,bknj->bkni', Rs, P3) + ts[:, :, None]
+    uvw = np.einsum('bij,bknj->bkni', Kc, cam)
+    uv = uvw[..., :2] / uvw[..., 2:3] + rng.normal(0, noise, uvw[..., :2].shape)
+    return [torch.tensor(np.asarray(a, np.float32), device=device)
+            for a in (Kc, P3, uv)]
+
+
+def hold_minimal6(name, noise, p, ok, pr, okr):
+    """The kernel (p, ok) against the plain version (pr, okr), one
+    estimator's (B, K) block."""
+    p, ok, pr, okr = (t.cpu().numpy() for t in (p, ok, pr, okr))
+    both = ok & okr
+    dt = np.abs(p[..., 4:] - pr[..., 4:]).max(-1)[both]
+    dq = np.abs(np.sum(p[..., :4] * pr[..., :4], -1))[both]
+    assert (ok == okr).mean() >= 0.99, (ok == okr).mean()
+    if name == 'dlt':
+        assert np.median(dt) < 0.1 and np.quantile(dt, 0.9) < 1.0
+        assert np.quantile(dq, 0.1) > 1 - 1e-4
+    elif noise == 0:
+        assert np.quantile(dt, 0.99) < 0.05 and np.quantile(dq, 0.01) > 1 - 1e-5
+    else:
+        dtn = np.linalg.norm(p[..., 4:] - pr[..., 4:], axis=-1)[both]
+        assert np.median(dtn) < 0.1 and np.percentile(dtn, 90) < 5.0
+
+
+@pytest.mark.parametrize('noise,planar', [(0.0, False), (1.0, False),
+                                          (0.0, True)])
+def test_minimal6_kernel_matches_plain(cuda, noise, planar):
+    from lc_tpu_torch.pnp import fast_minimal
+    from lc_tpu_torch.pnp.minimal6_kernel import minimal6_cuda
+    args = minimal_samples(32, 150, noise, planar, seed=0, device=cuda)
+    before = minimal6_cuda.launches
+    pose, ok = minimal6_cuda(*args)
+    torch.cuda.synchronize()
+    assert minimal6_cuda.launches == before + 1
+    pr, okr = fast_minimal.minimal6(*args)
+    Kh = args[1].shape[1]
+    for e, name in enumerate(fast_minimal.ESTIMATORS):
+        if planar != (name == 'planar'):
+            continue   # each estimator on the samples it is made for
+        sl = slice(e * Kh, (e + 1) * Kh)
+        hold_minimal6(name, noise, pose[:, sl], ok[:, sl], pr[:, sl],
+                      okr[:, sl])
+    assert torch.isfinite(pose).all()
+
+
+def test_minimal6_estimator_subset_and_ransac_dispatch(cuda):
+    """A subset of estimators keeps lc_tpu's order; ransac_pnp on the card
+    launches the kernel once a call and never the generic estimators."""
+    from lc_tpu_torch.pnp import fast_minimal, ransac
+    from lc_tpu_torch.pnp.minimal6_kernel import minimal6_cuda
+    args = minimal_samples(4, 20, 1.0, False, seed=3, device=cuda)
+    full, _ = minimal6_cuda(*args)
+    sub, _ = minimal6_cuda(*args, ('dlt', 'epnp'))
+    assert torch.equal(sub, torch.cat((full[:, :20], full[:, 40:]), 1))
+    assert ransac.hypothesis_solver(cuda) is minimal6_cuda
+    Kc, P3, uv = args
+    before = minimal6_cuda.launches
+    res = ransac.ransac_pnp(Kc, P3.reshape(4, -1, 3), uv.reshape(4, -1, 2),
+                            torch.Generator(device=cuda).manual_seed(0),
+                            num_hypotheses=16)
+    torch.cuda.synchronize()
+    assert minimal6_cuda.launches == before + 1
+    assert res.pose7.shape == (4, 7)
+    plain = fast_minimal.minimal6(*args, ('dlt', 'epnp'))[0]
+    assert plain.shape == sub.shape
+
+
+def test_minimal6_rejects_cpu_and_bad_dtype(cuda):
+    from lc_tpu_torch.pnp.minimal6_kernel import minimal6_cuda
+    args = minimal_samples(2, 4, 0.0, False, seed=4, device=cuda)
+    with pytest.raises(ValueError):
+        minimal6_cuda(*[a.cpu() for a in args])
+    with pytest.raises(TypeError):
+        minimal6_cuda(args[0], args[1].double(), args[2])
+    with pytest.raises(ValueError):
+        minimal6_cuda(args[0], args[1][:, :, :5].contiguous(),
+                      args[2][:, :, :5].contiguous())
