@@ -39,7 +39,8 @@ Phases, each of which fails the run on error:
      estimator held to MINIMAL6_TOL, every pose finite, the kernel timed
      (CUDA events; device time from the profiler) beside the plain version
      and its bound (the plain version's counted f32 operations over the
-     f32 peak), with ptxas's registers and spill bytes. Every path, oracle,
+     f32 rate without multiply-add fusion), with the lanes an EPnP problem
+     and ptxas's registers and spill bytes. Every path, oracle,
      int8 run, CLI and bench mode launches minimal6 once a ransac_pnp call,
      and no hypothesis stage on the card reaches the generic estimators
      (guard_generic_hypotheses);
@@ -130,6 +131,11 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# The data sheet's f32 rate counts a fused multiply-add as two operations.
+# The kernels built with -fmad=false (lm_refine, minimal6) issue every
+# counted multiply or add as its own instruction: 128 f32 lanes x 132 SMs
+# x 1.98 GHz (boost clock) a second
+PEAK_F32_UNFUSED_OPS = 128 * 132 * 1.98e9
 # its L2 (data sheet): a kernel timed against the HBM bound cycles through
 # copies of its inputs that this cannot hold
 L2_BYTES = 50 * 2 ** 20
@@ -559,7 +565,8 @@ def lm_case(args, kw, name: str = '', refer: bool = False,
 def lm_bound_ms(args, out) -> tuple[float, str]:
     """Least time for this call: inputs read once, outputs written once, over
     HBM bandwidth; against the flops these inputs need (valid points times
-    the iterations each problem ran) over the f32 peak. The larger wins."""
+    the iterations each problem ran) over the f32 rate without multiply-add
+    fusion (the kernel builds with -fmad=false). The larger wins."""
     import torch
     from lc_tpu_torch.pnp.lm_kernel import (FLOPS_PER_POINT_INIT,
                                             FLOPS_PER_POINT_ITER)
@@ -573,7 +580,7 @@ def lm_bound_ms(args, out) -> tuple[float, str]:
     flops = float((n_valid * (FLOPS_PER_POINT_INIT
                               + FLOPS_PER_POINT_ITER * n_iter)).sum())
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / PEAK_F32_UNFUSED_OPS * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -1543,13 +1550,14 @@ def minimal6_bound_ms(args, ops) -> tuple[float, str]:
     """Least time for this call: the bytes (inputs read once, pose and ok
     written once) over HBM bandwidth against the f32 operations of the
     plain version (ops per problem of each estimator named, times the
-    problems) over the f32 non-tensor peak; the larger wins."""
+    problems) over the f32 rate without multiply-add fusion (the kernel
+    builds with -fmad=false); the larger wins."""
     cam_K, sub3d, sub2d, est = args
     P = sub3d.shape[0] * sub3d.shape[1]
     nbytes = sum(a.numel() * a.element_size() for a in (cam_K, sub3d, sub2d))
     nbytes += len(est) * P * (7 * 4 + 1)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = P * sum(ops[e] for e in est) / PEAK_F32_FLOPS * 1e3
+    t_ops = P * sum(ops[e] for e in est) / PEAK_F32_UNFUSED_OPS * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -1616,7 +1624,7 @@ def phase_minimal6(device) -> dict:
     cameras and estimators of each path's and oracle's own RANSAC call
     (HYPOTHESIS_INPUTS), each timed beside its bound."""
     from lc_tpu_torch import cuda_build
-    from lc_tpu_torch.pnp.minimal6_kernel import ops_per_problem
+    from lc_tpu_torch.pnp.minimal6_kernel import lanes, ops_per_problem
     ops = ops_per_problem()
     log(f'[minimal6] f32 operations a problem (fast_minimal, counted): '
         f'{json.dumps(ops)}')
@@ -1632,9 +1640,10 @@ def phase_minimal6(device) -> dict:
     for tag, args in HYPOTHESIS_INPUTS.items():
         sets[f'd_{tag}'] = (args, dict(epnp='noisy', planar='noisy',
                                        dlt='dlt'))
-    rep = dict(ops_per_problem=ops, tolerance=MINIMAL6_TOL,
+    rep = dict(ops_per_problem=ops, tolerance=MINIMAL6_TOL, lanes=lanes(),
                ptxas=ptxas_summary(cuda_build.build_logs.get('minimal6')))
-    log(f'[minimal6] ptxas: {json.dumps(rep["ptxas"])}')
+    log(f'[minimal6] lanes a problem {json.dumps(rep["lanes"])}; ptxas: '
+        f'{json.dumps(rep["ptxas"])}')
     for name, (args, rules) in sets.items():
         rep[name] = minimal6_case(name, args, rules, ops,
                                   plain_reps=3 if name == 'a_noise_free' else 1)
@@ -3538,11 +3547,12 @@ def run_phases(torch):
         max_abs_err=max(c[e]['max_abs_err'] for c in m6.values()
                         if isinstance(c, dict) and 'estimators' in c
                         for e in c['estimators']),
-        ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
-        bound_by=m['bound_by'], library_ms=None,
+        ms=m['ms'], device_ms=m['device_ms'], plain_ms=m['plain_ms'],
+        bound_ms=m['bound_ms'], bound_by=m['bound_by'], library_ms=None,
         tolerance=MINIMAL6_TOL, cases=m6))
     log('[summary] minimal6 (RANSAC hypotheses, one launch a ransac_pnp '
-        f'call) on {card}: ptxas {json.dumps(m6["ptxas"])}')
+        f'call) on {card}: lanes a problem {json.dumps(m6["lanes"])}, ptxas '
+        f'{json.dumps(m6["ptxas"])}')
     for name, c in m6.items():
         if isinstance(c, dict) and 'estimators' in c:
             log(f'[summary] minimal6 {name} (B={c["B"]}, K={c["K"]}): ms '

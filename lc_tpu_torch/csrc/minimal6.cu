@@ -6,59 +6,81 @@
 // which lc_tpu's ransac_pnp runs on every backend but the CPU
 // (lc_tpu/pnp/ransac.py:305-324). Its plain PyTorch version, the referee it
 // is held against, is lc_tpu_torch/pnp/fast_minimal.py::minimal6, a
-// transcription of lc_tpu's module; each function below follows it
-// operation for operation, in the same order, with the same structural
-// zeros:
+// transcription of lc_tpu's module; every value below is computed with the
+// operations of the plain version, in the same order, with the same
+// structural zeros:
 //  * the 12x12 EPnP normal matrix MtM has no (x, y) block, the 11x11 DLT
 //    matrix none between its u rows (0-3) and v rows (4-7), the 8x8
 //    homography matrix none between rows 0-2 and 3-5; their Cholesky
 //    factors have no fill-in there either (no column left of the block has
 //    entries in both its rows), so those entries are never formed, read or
-//    multiplied (the compile-time Block::absent test);
+//    multiplied (Block::absent);
 //  * a sum starts from +0 where lc_tpu's Python sum() starts from 0, and
-//    from its first term where lc_tpu starts from None; a max with a
-//    constant lets NaN through (jnp.maximum), unlike fmaxf;
+//    from its first term where lc_tpu starts from None, and adds its terms
+//    in lc_tpu's order (never a tree across lanes); a max with a constant
+//    lets NaN through (jnp.maximum), unlike fmaxf;
 //  * the shifted inverse iteration starts from lc_tpu's basis, the Q of
-//    default_rng(7)'s (12, 4) Gaussian, which the wrapper passes by value
-//    (row-major, 48 floats);
+//    default_rng(7)'s (12, 4) Gaussian, which the wrapper writes once into
+//    __constant__ memory (lc_minimal6_set_basis, row-major, 48 floats);
 //  * each solver ends with lc_tpu's non-finite test: a pose with a
 //    non-finite entry becomes [1,0,0,0,0,0,1] with ok false.
 // The file builds without fast-math and with -fmad=false (cuda_build's
 // EXTRA_FLAGS): every multiply and add is rounded on its own, as in the
 // plain version's one-operation-a-kernel torch code on the card, and
-// division and square root are IEEE. atan2f, cosf and sinf come from CUDA's
-// math library, as the plain version's do on the card, so the two can
-// agree bit for bit; compiled for the host, this file gives lc_tpu's
-// hypotheses bit for bit (tests/test_torch_fast_minimal.py).
+// division and square root are IEEE. atan2f and sincosf (the bits of sinf
+// and cosf from one range reduction) come from CUDA's math library, as the
+// plain version's atan2, sin and cos do on the card, so the two can agree
+// bit for bit; compiled for the host, this file gives lc_tpu's hypotheses
+// bit for bit (tests/test_torch_fast_minimal.py, which also runs it at one
+// lane an EPnP problem and with the lanes in reverse order).
 //
-// Layout: one thread solves one (problem, estimator); blockIdx.y picks the
-// estimator (`order` packs the codes of the estimators asked for, two bits
-// each, in lc_tpu's order epnp, planar, dlt), so a warp never mixes
-// solvers. A thread reads its sample's 18 + 12 floats and its problem's
-// fx, fy, cx, cy, holds every solver variable in fully unrolled fixed-size
-// local arrays, and writes its pose7 and ok into pose_h (B, nE*K, 7) and
-// ok_h (B, nE*K) at lc_tpu's concatenated position b, e*K + k. The outer
-// iteration loops (Jacobi sweeps, inverse iterations, Gauss-Newton steps,
-// Newton-Schulz steps) are not unrolled; every index inside them is a
-// compile-time constant, so the arrays live in registers where the
-// register file holds them and spill to local memory (L1) where it does
-// not: EPnP keeps MtM (62 entries), its Cholesky factor (62 + 12), the
-// 12x4 basis and the barycentric coordinates live together, about 200
-// floats. chip_smoke.py prints ptxas's registers and spill bytes.
+// Layout. A block is 4 warps (fewer where their shared memory would pass
+// 48 KB). The EPnP blocks, the longest, come first: a group of
+// LC_M6_LANES_EPNP lanes (4) of one warp solves an EPnP problem. Then the
+// one-lane blocks: each thread solves planar-6 and DLT-6 (those asked for)
+// of its problem, one after the other, so a warp never mixes EPnP with the
+// others. `order` packs the codes asked for, two bits each, in lc_tpu's
+// order, which sets each estimator's place in the output. A warp stages
+// the samples of its problems, which are contiguous, through shared memory
+// (neighbouring lanes read neighbouring floats). The lanes of an EPnP
+// group exchange data only through the group's slice of shared memory
+// (MtM, X, Y: under 0.7 KB), with __syncwarp(group mask) between steps;
+// nothing goes through device memory. Two kinds of EPnP step:
+//  * split across the lanes, each element with exactly the operations and
+//    order of the plain version: lane q forms MtM's sum q (Σ αl αm, Σ αl αm
+//    cu, Σ αl αm cv, Σ αl αm (cu² + cv²)) of every (l, m) block; lane k
+//    solves column k of the inverse iteration and takes part in modified
+//    Gram-Schmidt pipelined across the column owners (at stage kp the owner
+//    of column kp normalizes and publishes it, the owners of the later
+//    columns take their projections out); lane k forms column k of
+//    Y = MtM X;
+//  * serial chains, computed by every lane of the group in the same order
+//    (the same bits in every lane, no exchange): the 3x3 PCA, the
+//    barycentric coordinates, MtM's Cholesky factor, T = Xᵀ Y and its 4x4
+//    Jacobi, Vb and its sort, the β Gauss-Newton, Procrustes and its polar
+//    iteration, the quaternion.
+// Lane 0 of a group writes its pose7 and ok into pose_h (B, nE*K, 7) and
+// ok_h (B, nE*K) at lc_tpu's concatenated position b, e*K + k. Groups past
+// the last problem return as a whole; every lane of a group runs the same
+// steps, so every __syncwarp of a group is reached by all its lanes.
 //
-// What bounds it on this card: operations. At the main path's B = 32,
+// What bounds it on this card: one EPnP chain. At the main path's B = 32,
 // K = 150 (P = 4,800 problems an estimator) it reads 0.6 MB and writes
-// 0.5 MB, 0.3 us at 3.35 TB/s, against about 30,000 f32 operations a
-// problem over the three estimators (fast_minimal's operations, counted
-// by minimal6_kernel.ops_per_problem), 2.2 us at the 67 TFLOP/s f32
-// non-tensor peak. Each thread runs one long dependent chain with little
-// parallelism inside it, so the kernel needs many threads in flight: at
-// 14,400 threads (113 blocks of 128 over 132 SMs, one or two warps of
-// each estimator per SM) the card is far from full, and the chain's
-// latency, not the peak rate, sets the time. The design keeps it one
-// launch per call with no intermediate in device memory, which is what
-// replaces the plain version's ~10^4 launches; filling the card (more
-// problems, or a problem split across lanes) is later work.
+// 0.5 MB, 0.3 us at 3.35 TB/s, against 22,439 f32 operations a problem over
+// the three estimators (fast_minimal's operations, counted by
+// minimal6_kernel.ops_per_problem), each issued as its own instruction
+// under -fmad=false: 3.2 us at 128 lanes x 132 SMs x 1.98 GHz. The card is
+// far from that rate: the kernel lasts as long as the longest EPnP chain,
+// and the chain is serial. Its 4x4 Rayleigh-Ritz Jacobi alone (48
+// rotations, each an atan2f and a sincosf behind the last rotation's
+// update) is nearly half of it (perf_scripts/minimal6_phases.py). Lanes
+// shorten only the work that splits across elements; the serial chains
+// run on every lane of a group, so each lane more multiplies their issue:
+// at 4 lanes an EPnP problem the grid holds 750 warps (EPnP 600, planar-6
+// and DLT-6 150), about one EPnP warp a scheduler; fewer or more lanes were
+// slower with the three estimators (perf_scripts/minimal6_lanes.py).
+// Planar-6 and DLT-6 together end well before EPnP-6 at one lane a problem;
+// split across lanes they were slower.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 //        -Xcompiler -fPIC
@@ -68,15 +90,22 @@
 #include <math.h>
 #include <stdint.h>
 
+// lanes an EPnP problem (planar and DLT take one); a warp holds 32 / this
+// groups
+#ifndef LC_M6_LANES_EPNP
+#define LC_M6_LANES_EPNP 4
+#endif
+
 namespace {
 
-constexpr int kThreads = 128;  // threads per block
 constexpr int kS = 6;          // points a sample
-constexpr int kEpnp = 0, kPlanar = 1;  // and 2: dlt
+constexpr int kEpnp = 0, kPlanar = 1, kDlt = 2;
 
-struct Basis {
-  float v[48];  // the 12x4 start basis, row-major: v[4 * i + k]
-};
+static_assert(LC_M6_LANES_EPNP >= 1 && LC_M6_LANES_EPNP <= 32,
+              "a group lies in one warp");
+
+// lc_tpu's 12x4 start basis, row-major: c_basis[4 * i + k]
+__constant__ float c_basis[48];
 
 struct Sample {
   float x[kS], y[kS], z[kS], u[kS], v[kS];
@@ -120,8 +149,8 @@ __device__ __forceinline__ void jacobi_sym(float (&a)[N][N], float (&V)[N][N],
         const float aqq = a[q][q];
         const float apq = a[p][q];
         const float theta = 0.5f * atan2f(2.0f * apq, app - aqq);
-        const float c = cosf(theta);
-        const float s = sinf(theta);
+        float s, c;
+        sincosf(theta, &s, &c);   // the bits of sinf and cosf, one reduction
         float old[N], oldq[N];
 #pragma unroll
         for (int k = 0; k < N; ++k) {
@@ -257,29 +286,6 @@ __device__ __forceinline__ void chol_solve(const float (&L)[N][N],
     for (int k = i + 1; k < N; ++k)
       if (!Z::absent(k, i)) s = s - L[k][i] * x[k];
     x[i] = s * Ld[i];
-  }
-}
-
-// the same solve on column k of a matrix of N rows and 4 columns
-template <int N, class Z>
-__device__ __forceinline__ void chol_solve_col(const float (&L)[N][N],
-                                               const float (&Ld)[N],
-                                               float (&X)[N][4], int k) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = X[i][k];
-#pragma unroll
-    for (int m = 0; m < i; ++m)
-      if (!Z::absent(i, m)) s = s - L[i][m] * X[m][k];
-    X[i][k] = s * Ld[i];
-  }
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    float s = X[i][k];
-#pragma unroll
-    for (int m = i + 1; m < N; ++m)
-      if (!Z::absent(m, i)) s = s - L[m][i] * X[m][k];
-    X[i][k] = s * Ld[i];
   }
 }
 
@@ -435,9 +441,43 @@ __device__ __forceinline__ void scatter(const float (&dx)[kS],
 }
 
 // --------------------------------------------------------------------------
-// EPnP-6 (lc_tpu's epnp6_scalar, eig_iters = 3, gn_iters = 4,
-// pca_sweeps = 4)
+// lane groups
 // --------------------------------------------------------------------------
+
+// The G lanes of one warp that solve one problem: lane in [0, G), mask the
+// group's bits in the warp.
+template <int G>
+struct Group {
+  int lane;
+  unsigned mask;
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+};
+
+template <int G>
+__device__ __forceinline__ Group<G> make_group() {
+  const int t = (int)threadIdx.x & 31;
+  Group<G> g;
+  g.lane = t % G;
+  g.mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (t - t % G);
+  return g;
+}
+
+// --------------------------------------------------------------------------
+// EPnP-6 (lc_tpu's epnp6_scalar, eig_iters = 3, gn_iters = 4,
+// pca_sweeps = 4), a problem over G lanes
+// --------------------------------------------------------------------------
+
+// what the lanes of one EPnP problem exchange
+struct EpnpWs {
+  float M[78];      // MtM's upper triangle, row by row (upper())
+  float X[12][4];   // the inverse iteration's basis, a column as it is final
+  float Y[12][4];   // MtM X
+};
+
+// the place of MtM's (i, j), i <= j, in EpnpWs::M
+__host__ __device__ constexpr int upper(int i, int j) {
+  return i * (23 - i) / 2 + j;
+}
 
 // the 6 pairs of control points, (0,1) (0,2) (0,3) (1,2) (1,3) (2,3)
 __host__ __device__ constexpr int pair_first(int p) {
@@ -447,7 +487,9 @@ __host__ __device__ constexpr int pair_second(int p) {
   return p < 3 ? p + 1 : p < 5 ? p - 1 : 3;
 }
 
-__device__ __forceinline__ Hyp epnp6(const Sample& s, const Basis& basis) {
+template <int G>
+__device__ __forceinline__ Hyp epnp6(const Group<G>& g, EpnpWs& w,
+                                     const Sample& s) {
   const float inv_s = (float)(1.0 / kS);
   float c0x, c0y, c0z, dx[kS], dy[kS], dz[kS];
   center(s, inv_s, c0x, c0y, c0z, dx, dy, dz);
@@ -498,43 +540,57 @@ __device__ __forceinline__ Hyp epnp6(const Sample& s, const Basis& basis) {
     alph[j][3] = b3;
   }
 
-  // MtM, upper triangle; the (x, y) block rows 4-7 x columns 0-3 is absent
+  // MtM, upper triangle; the (x, y) block rows 4-7 x columns 0-3 is
+  // absent. Lane q forms sum q of every (l, m) block: Σ αl αm w with w = 1
+  // (q = 0, MtM[l][m] and MtM[4+l][4+m]), cu (1, MtM[l][8+m]), cv (2,
+  // MtM[4+l][8+m]), cu² + cv² (3, MtM[8+l][8+m]); a product with w = 1
+  // is the product itself.
   using ZM = Block<4, 8, 0, 4>;
-  float cu[kS], cv[kS];
+  {
+    float cu[kS], cv[kS];
 #pragma unroll
-  for (int j = 0; j < kS; ++j) {
-    cu[j] = s.cx - s.u[j];
-    cv[j] = s.cy - s.v[j];
+    for (int j = 0; j < kS; ++j) {
+      cu[j] = s.cx - s.u[j];
+      cv[j] = s.cy - s.v[j];
+    }
+    const float fx2 = s.fx * s.fx, fy2 = s.fy * s.fy;
+    for (int q = g.lane; q < 4; q += G) {
+      float wt[kS];
+#pragma unroll
+      for (int j = 0; j < kS; ++j)
+        wt[j] = q == 0   ? 1.0f
+                : q == 1 ? cu[j]
+                : q == 2 ? cv[j]
+                         : cu[j] * cu[j] + cv[j] * cv[j];
+      const int r0 = q == 3 ? 8 : q == 2 ? 4 : 0, c0 = q == 0 ? 0 : 8;
+      const float sc = q == 0 ? fx2 : q == 1 ? s.fx : q == 2 ? s.fy : 1.0f;
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+#pragma unroll
+        for (int m = l; m < 4; ++m) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kS; ++j)
+            acc = acc + alph[j][l] * alph[j][m] * wt[j];
+          const float v = sc * acc;
+          w.M[upper(r0 + l, c0 + m)] = v;
+          if (q == 0)
+            w.M[upper(4 + l, 4 + m)] = fy2 * acc;
+          else if (q != 3 && m != l)
+            w.M[upper(r0 + m, c0 + l)] = v;
+        }
+    }
   }
+  g.sync();
   float M[12][12];
 #pragma unroll
-  for (int l = 0; l < 4; ++l)
+  for (int i = 0; i < 12; ++i)
 #pragma unroll
-    for (int m = l; m < 4; ++m) {
-      float s_lm = 0.0f, tu = 0.0f, tv = 0.0f, uu = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kS; ++j) s_lm = s_lm + alph[j][l] * alph[j][m];
-#pragma unroll
-      for (int j = 0; j < kS; ++j)
-        tu = tu + alph[j][l] * alph[j][m] * cu[j];
-#pragma unroll
-      for (int j = 0; j < kS; ++j)
-        tv = tv + alph[j][l] * alph[j][m] * cv[j];
-#pragma unroll
-      for (int j = 0; j < kS; ++j)
-        uu = uu + alph[j][l] * alph[j][m] * (cu[j] * cu[j] + cv[j] * cv[j]);
-      M[l][m] = s.fx * s.fx * s_lm;
-      M[4 + l][4 + m] = s.fy * s.fy * s_lm;
-      M[8 + l][8 + m] = uu;
-      M[l][8 + m] = s.fx * tu;
-      M[4 + l][8 + m] = s.fy * tv;
-      if (m != l) {
-        M[m][8 + l] = s.fx * tu;
-        M[4 + m][8 + l] = s.fy * tv;
-      }
-    }
+    for (int j = i; j < 12; ++j)
+      if (!ZM::absent(j, i)) M[i][j] = w.M[upper(i, j)];
 
-  // shifted inverse subspace iteration for the 4 smallest eigenvectors
+  // shifted inverse subspace iteration for the 4 smallest eigenvectors;
+  // every lane factors MtM, lane k solves column k
   float tr = 0.0f;
 #pragma unroll
   for (int i = 0; i < 12; ++i) tr = tr + M[i][i];
@@ -544,63 +600,90 @@ __device__ __forceinline__ Hyp epnp6(const Sample& s, const Basis& basis) {
   for (int i = 0; i < 12; ++i) diag[i] = M[i][i] + shift;
   float L[12][12], Ld[12];
   const bool chol_ok = chol<12, ZM>(M, diag, L, Ld);
+  constexpr int C = (4 + G - 1) / G;   // columns a lane: k = lane + c G
+  float x[C][12];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = g.lane + c * G;
+    if (k < 4)
+#pragma unroll
+      for (int i = 0; i < 12; ++i) x[c][i] = c_basis[4 * i + k];
+  }
+#pragma unroll 1
+  for (int it = 0; it < 3; ++it) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (g.lane + c * G < 4) chol_solve<12, ZM>(L, Ld, x[c]);
+    // modified Gram-Schmidt over the 4 columns: at stage kp the owner of
+    // column kp normalizes it and publishes it, then the owners of the
+    // later columns take their projection on it out
+#pragma unroll
+    for (int kp = 0; kp < 4; ++kp) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (g.lane + c * G != kp) continue;
+        float nn = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 12; ++i) nn = nn + x[c][i] * x[c][i];
+        const float inv_n = 1.0f / sqrtf(maxp(nn, 1e-30f));
+#pragma unroll
+        for (int i = 0; i < 12; ++i) {
+          x[c][i] = x[c][i] * inv_n;
+          w.X[i][kp] = x[c][i];
+        }
+      }
+      g.sync();
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int k = g.lane + c * G;
+        if (k <= kp || k >= 4) continue;
+        float dot = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 12; ++i) dot = dot + w.X[i][kp] * x[c][i];
+#pragma unroll
+        for (int i = 0; i < 12; ++i) x[c][i] = x[c][i] - dot * w.X[i][kp];
+      }
+    }
+  }
+
+  // Rayleigh-Ritz: lane k forms column k of Y = MtM X (each entry's sum
+  // over j from its first term); every lane then forms T = Xᵀ Y (each sum
+  // over the rows in order, from 0), its Jacobi rotation Q and Vb = X Q
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = g.lane + c * G;
+    if (k >= 4) continue;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      float acc = 0.0f;
+      bool first = true;
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        if (ZM::absent(i, j) || ZM::absent(j, i)) continue;
+        const float term = sym(M, i, j) * x[c][j];
+        acc = first ? term : acc + term;
+        first = false;
+      }
+      w.Y[i][k] = acc;
+    }
+  }
+  g.sync();
   float X[12][4];
 #pragma unroll
   for (int i = 0; i < 12; ++i)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) X[i][k] = basis.v[4 * i + k];
-#pragma unroll 1
-  for (int it = 0; it < 3; ++it) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) chol_solve_col<12, ZM>(L, Ld, X, k);
-    // modified Gram-Schmidt over the 4 columns
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int kp = 0; kp < kc; ++kp) {
-        float dot = 0.0f;
-#pragma unroll
-        for (int i = 0; i < 12; ++i) dot = dot + X[i][kp] * X[i][kc];
-#pragma unroll
-        for (int i = 0; i < 12; ++i) X[i][kc] = X[i][kc] - dot * X[i][kp];
-      }
-      float nn = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 12; ++i) nn = nn + X[i][kc] * X[i][kc];
-      const float inv_n = 1.0f / sqrtf(maxp(nn, 1e-30f));
-#pragma unroll
-      for (int i = 0; i < 12; ++i) X[i][kc] = X[i][kc] * inv_n;
-    }
-  }
-
-  // Rayleigh-Ritz: T = Xᵀ MtM X, a row of Y = MtM X at a time (each of T's
-  // sums runs over the rows in order, as lc_tpu's does)
+    for (int k = 0; k < 4; ++k) X[i][k] = w.X[i][k];
   float T[4][4];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int c = a; c < 4; ++c) T[a][c] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    float Yi[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float acc = 0.0f;
-      bool first = true;
-#pragma unroll
-      for (int j = 0; j < 12; ++j) {
-        if (ZM::absent(i, j) || ZM::absent(j, i)) continue;
-        const float term = sym(M, i, j) * X[j][k];
-        acc = first ? term : acc + term;
-        first = false;
-      }
-      Yi[k] = acc;
-    }
+  for (int i = 0; i < 12; ++i)
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = a; c < 4; ++c) T[a][c] = T[a][c] + X[i][a] * Yi[c];
-  }
+      for (int c = a; c < 4; ++c) T[a][c] = T[a][c] + X[i][a] * w.Y[i][c];
   float Q[4][4];
   set_identity(Q);
   jacobi_sym(T, Q, 8);
@@ -990,60 +1073,138 @@ __device__ __noinline__ Hyp planar6(const Sample& s) {
   return finish(Rw, tw[0], tw[1], tw[2], ok);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    minimal6_kernel(const float* __restrict__ cam_K,
-                    const float* __restrict__ sub3d,
-                    const float* __restrict__ sub2d, float* __restrict__ pose,
-                    unsigned char* __restrict__ ok, int B, int Kh, int order,
-                    Basis basis) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= B * Kh) return;
-  const int e = blockIdx.y;
-  const int est = (order >> (2 * e)) & 3;
-  const int b = p / Kh;
-  const int k = p - b * Kh;
-  Sample s;
-  const float* p3 = sub3d + (size_t)p * (3 * kS);
-  const float* p2 = sub2d + (size_t)p * (2 * kS);
-#pragma unroll
-  for (int j = 0; j < kS; ++j) {
-    s.x[j] = p3[3 * j];
-    s.y[j] = p3[3 * j + 1];
-    s.z[j] = p3[3 * j + 2];
-    s.u[j] = p2[2 * j];
-    s.v[j] = p2[2 * j + 1];
-  }
-  const float* Kb = cam_K + (size_t)b * 9;
-  s.fx = Kb[0];
-  s.fy = Kb[4];
-  s.cx = Kb[2];
-  s.cy = Kb[5];
-  const Hyp h = est == kEpnp     ? epnp6(s, basis)
-                : est == kPlanar ? planar6(s)
-                                 : dlt6(s);
-  const size_t row = (size_t)b * gridDim.y * Kh + (size_t)e * Kh + k;
+// --------------------------------------------------------------------------
+// the launch
+// --------------------------------------------------------------------------
+
+// a warp's shared memory: the samples of its problems, staged by the whole
+// warp, then one EPnP exchange slice a group
+union WarpWs {
+  struct {
+    float p3[32 * 3 * kS];
+    float p2[32 * 2 * kS];
+  } in;
+  EpnpWs epnp[32 / LC_M6_LANES_EPNP];
+};
+
+// warps a block: 4, or as many as 48 KB of static shared memory holds
+constexpr int kWarps = 4 * sizeof(WarpWs) <= 48 * 1024   ? 4
+                       : 2 * sizeof(WarpWs) <= 48 * 1024 ? 2
+                                                         : 1;
+constexpr int kThreads = 32 * kWarps;
+
+// problems a warp, and blocks, of an EPnP or a one-lane block
+__host__ __device__ constexpr int per_warp(bool epnp) {
+  return 32 / (epnp ? LC_M6_LANES_EPNP : 1);
+}
+__host__ __device__ constexpr int blocks_of(bool epnp, int P) {
+  return (P + kWarps * per_warp(epnp) - 1) / (kWarps * per_warp(epnp));
+}
+
+// a hypothesis into row `row` of pose_h and ok_h
+__device__ __forceinline__ void put(float* __restrict__ pose,
+                                    unsigned char* __restrict__ ok,
+                                    size_t row, const Hyp& h) {
 #pragma unroll
   for (int i = 0; i < 7; ++i) pose[row * 7 + i] = h.pose[i];
   ok[row] = h.ok ? 1 : 0;
 }
 
+__global__ void __launch_bounds__(kThreads)
+    minimal6_kernel(const float* __restrict__ cam_K,
+                    const float* __restrict__ sub3d,
+                    const float* __restrict__ sub2d, float* __restrict__ pose,
+                    unsigned char* __restrict__ ok, int B, int Kh, int n_est,
+                    int order) {
+  __shared__ WarpWs ws[kWarps];
+  const int P = B * Kh;
+  // the EPnP blocks first, then the one-lane blocks, whose every thread
+  // solves planar-6 and DLT-6 (those asked for) of its problem
+  int e_epnp = -1;
+  for (int e = 0; e < n_est; ++e)
+    if (((order >> (2 * e)) & 3) == kEpnp) e_epnp = e;
+  const int nb_epnp = e_epnp >= 0 ? blocks_of(true, P) : 0;
+  const bool epnp = (int)blockIdx.x < nb_epnp;
+  const int blk = (int)blockIdx.x - (epnp ? 0 : nb_epnp);
+  // the warp's problems p0 .. p0 + n - 1 are contiguous in sub3d and
+  // sub2d: the whole warp stages them, neighbouring lanes on neighbouring
+  // floats
+  const int G = epnp ? LC_M6_LANES_EPNP : 1;
+  const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
+  const int p0 = (blk * kWarps + warp) * per_warp(epnp);
+  const int n = P - p0 < per_warp(epnp) ? P - p0 : per_warp(epnp);
+  if (n <= 0) return;   // the whole warp
+  WarpWs& w = ws[warp];
+  for (int i = lane; i < n * 3 * kS; i += 32)
+    w.in.p3[i] = sub3d[(size_t)p0 * (3 * kS) + i];
+  for (int i = lane; i < n * 2 * kS; i += 32)
+    w.in.p2[i] = sub2d[(size_t)p0 * (2 * kS) + i];
+  __syncwarp();
+  const int grp = lane / G;
+  const int q = grp < n ? grp : 0;
+  Sample s;
+#pragma unroll
+  for (int j = 0; j < kS; ++j) {
+    s.x[j] = w.in.p3[q * 3 * kS + 3 * j];
+    s.y[j] = w.in.p3[q * 3 * kS + 3 * j + 1];
+    s.z[j] = w.in.p3[q * 3 * kS + 3 * j + 2];
+    s.u[j] = w.in.p2[q * 2 * kS + 2 * j];
+    s.v[j] = w.in.p2[q * 2 * kS + 2 * j + 1];
+  }
+  __syncwarp();   // the EPnP slices reuse the staging
+  if (grp >= n) return;   // the whole group
+  const int p = p0 + grp;
+  const int b = p / Kh;
+  const int k = p - b * Kh;
+  const float* Kb = cam_K + (size_t)b * 9;
+  s.fx = Kb[0];
+  s.fy = Kb[4];
+  s.cx = Kb[2];
+  s.cy = Kb[5];
+  const size_t row0 = (size_t)b * n_est * Kh + k;   // + e * Kh
+  if (epnp) {
+    const Group<LC_M6_LANES_EPNP> g = make_group<LC_M6_LANES_EPNP>();
+    const Hyp h = epnp6(g, w.epnp[grp], s);
+    if (g.lane == 0) put(pose, ok, row0 + (size_t)e_epnp * Kh, h);
+    return;
+  }
+  for (int e = 0; e < n_est; ++e) {
+    const int est = (order >> (2 * e)) & 3;
+    if (est == kEpnp) continue;
+    put(pose, ok, row0 + (size_t)e * Kh, est == kPlanar ? planar6(s) : dlt6(s));
+  }
+}
+
 }  // namespace
+
+// Writes the 12x4 start basis (48 floats in host memory, row-major) into
+// the current device's constant memory; once a device, before the first
+// lc_minimal6 there. Returns the CUDA error code.
+extern "C" int lc_minimal6_set_basis(const float* basis) {
+  return (int)cudaMemcpyToSymbol(c_basis, basis, 48 * sizeof(float));
+}
+
+// The lanes an EPnP problem in this build.
+extern "C" int lc_minimal6_lanes() { return LC_M6_LANES_EPNP; }
 
 // Hypotheses of n_est estimators (codes in `order`, two bits each, 0 epnp,
 // 1 planar, 2 dlt) for the B*Kh samples: pose (B, n_est*Kh, 7) f32 and ok
-// (B, n_est*Kh) bytes. basis: 48 floats in host memory, the 12x4 start
-// basis row-major. Returns the launch's CUDA error code.
+// (B, n_est*Kh) bytes. Returns the launch's CUDA error code.
 extern "C" int lc_minimal6(const float* cam_K, const float* sub3d,
                            const float* sub2d, float* pose, unsigned char* ok,
-                           int B, int Kh, int n_est, int order,
-                           const float* basis, void* stream) {
+                           int B, int Kh, int n_est, int order, void* stream) {
   if (n_est < 1 || n_est > 3) return (int)cudaErrorInvalidValue;
   if ((long)B * Kh == 0) return 0;
-  Basis bv;
-  for (int i = 0; i < 48; ++i) bv.v[i] = basis[i];
-  const dim3 grid((unsigned)((B * Kh + kThreads - 1) / kThreads),
-                  (unsigned)n_est);
-  minimal6_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      cam_K, sub3d, sub2d, pose, ok, B, Kh, order, bv);
+  unsigned seen = 0;
+  for (int e = 0; e < n_est; ++e) {
+    const int est = (order >> (2 * e)) & 3;
+    if (est > kDlt || (seen >> est & 1u)) return (int)cudaErrorInvalidValue;
+    seen |= 1u << est;
+  }
+  const unsigned blocks =
+      (seen & 1u ? blocks_of(true, B * Kh) : 0) +
+      (seen & 6u ? blocks_of(false, B * Kh) : 0);
+  minimal6_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      cam_K, sub3d, sub2d, pose, ok, B, Kh, n_est, order);
   return (int)cudaGetLastError();
 }

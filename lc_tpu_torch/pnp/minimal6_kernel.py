@@ -12,6 +12,7 @@ lc_tpu's CPU branch, the generic estimators.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -28,15 +29,43 @@ def _lib():
     from .. import cuda_build
     lib = cuda_build.load('minimal6')
     if lib.lc_minimal6.argtypes is None:
-        lib.lc_minimal6.argtypes = [_vp] * 5 + [_ci] * 4 + [_vp, _vp]
+        lib.lc_minimal6.argtypes = [_vp] * 5 + [_ci] * 4 + [_vp]
         lib.lc_minimal6.restype = _ci
+        lib.lc_minimal6_set_basis.argtypes = [_vp]
+        lib.lc_minimal6_set_basis.restype = _ci
+        lib.lc_minimal6_lanes.restype = _ci
     return lib
 
 
+@functools.cache
 def basis_arg() -> np.ndarray:
     """The kernel's start basis: lc_tpu's 12x4 basis in float32, row-major
-    (element 4 i + k is row i, column k)."""
-    return np.ascontiguousarray(start_basis(12, 4), dtype=np.float32).ravel()
+    (element 4 i + k is row i, column k); computed once, read-only."""
+    arg = np.ascontiguousarray(start_basis(12, 4), dtype=np.float32).ravel()
+    arg.flags.writeable = False
+    return arg
+
+
+# the devices whose constant memory holds the basis
+_basis_on: set[int] = set()
+
+
+def _put_basis(lib, dev: torch.device):
+    """Write the start basis into the kernel's constant memory on `dev`
+    (the current device), once a device."""
+    if dev.index in _basis_on:
+        return
+    err = lib.lc_minimal6_set_basis(basis_arg().ctypes.data)
+    if err != 0:
+        raise RuntimeError(f'minimal6: writing the start basis failed: CUDA '
+                           f'error {err}')
+    _basis_on.add(dev.index)
+
+
+def lanes() -> dict[str, int]:
+    """The lanes of a warp that solve one problem of each estimator in the
+    built kernel (planar and DLT take one)."""
+    return dict(epnp=_lib().lc_minimal6_lanes(), planar=1, dlt=1)
 
 
 def estimator_codes(estimators) -> list[int]:
@@ -96,13 +125,13 @@ def minimal6_cuda(cam_K: torch.Tensor, sub3d: torch.Tensor,
     if B * K == 0:
         return pose, ok
     lib = _lib()
-    basis = basis_arg()
     with torch.cuda.device(dev):
+        _put_basis(lib, dev)
         err = lib.lc_minimal6(
             cam_K.data_ptr(), sub3d.data_ptr(), sub2d.data_ptr(),
             pose.data_ptr(), ok.data_ptr(), B, K, n,
             sum(c << (2 * i) for i, c in enumerate(codes)),
-            basis.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'minimal6 kernel launch failed: CUDA error {err}')
     minimal6_cuda.launches += 1

@@ -231,6 +231,49 @@ def test_start_basis_is_lc_tpus(monkeypatch):
     assert not np.array_equal(arg, X0.T.astype(np.float32).ravel())
 
 
+def sparse_samples(untrained):
+    """6-of-16-keypoint samples as the sparse path draws them: the 16
+    keypoints data/synthetic.py gives the sparse head (the first 16 of
+    box_surface_points(half_extents, 16), all on the box's x = -40 face),
+    8 x 50 seeded draws, the 64² output grid's camera; noise-free
+    projections, or the 2D positions of an untrained head (the soft-argmax
+    of near-uniform heatmaps: the grid's centre, +-0.5 px)."""
+    from lc_tpu_torch.data.synthetic import box_surface_points
+    rng = np.random.default_rng(31)
+    B, Kh = 8, 50
+    kp = box_surface_points(np.array([40., 30., 20.]), 16)[:16]
+    R = sciR.random(B, random_state=32).as_matrix()
+    t = np.concatenate((rng.uniform(-50, 50, (B, 2)),
+                        rng.uniform(600, 800, (B, 1))), -1)
+    f = 0.4 * np.array([572.4, 573.6])
+    Kc = np.zeros((B, 3, 3))
+    Kc[:, 0, 0], Kc[:, 1, 1], Kc[:, 2, 2] = f[0], f[1], 1.0
+    Kc[:, :2, 2] = 32.0 - f * t[:, :2] / t[:, 2:3]
+    cam = np.einsum('bij,nj->bni', R, kp) + t[:, None]
+    uvw = np.einsum('bij,bnj->bni', Kc, cam)
+    uv = uvw[..., :2] / uvw[..., 2:3]
+    if untrained:
+        uv = 32.0 + rng.normal(0, 0.5, uv.shape)
+    idx = np.argsort(rng.random((B, Kh, 16)), -1)[..., :6]
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+    return (f32(Kc), f32(kp[idx]),
+            f32(np.take_along_axis(uv[:, None], idx[..., None], 2)))
+
+
+@pytest.mark.parametrize('untrained', [False, True],
+                         ids=['noise_free', 'untrained'])
+def test_dlt6_on_sparse_keypoints_matches_lc_tpu(untrained):
+    """DLT-6 on the sparse path's samples: lc_tpu's dlt6_fast (eager) and
+    the port's plain version flag the same samples. The 16 keypoints lie
+    on one face of the box, and DLT-6 needs points off a plane: neither
+    finds a valid hypothesis."""
+    Kc, P3, uv = sparse_samples(untrained)
+    _, okj = lc_tpu_hypotheses('dlt', Kc, P3, uv)
+    _, okt = tf.dlt6_fast(torch.tensor(Kc), torch.tensor(P3), torch.tensor(uv))
+    np.testing.assert_array_equal(okt.numpy(), okj)
+    assert not okj.any()
+
+
 def lc_tpu_sample_idx(key, valid, num_hypotheses, sample_size=6):
     """lc_tpu's Gumbel top-k draw (lc_tpu/pnp/ransac.py:265-273)."""
     B, N = valid.shape
@@ -360,74 +403,211 @@ def test_ops_per_problem():
 # the kernel's source, compiled for the host
 # ---------------------------------------------------------------------------
 
-HOST_SHIM = r'''#pragma once
+HOST_SHIM = r"""#pragma once
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <vector>
+#include <ucontext.h>
 using std::isnan; using std::isinf; using std::isfinite;
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
+#define __shared__ static
+#define __constant__
 struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3 { unsigned x, y, z; };
 static uint3 blockIdx, threadIdx;
-static dim3 gridDim;
+static dim3 gridDim, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 const int cudaErrorInvalidValue = 1;
-inline int cudaGetLastError() { return 0; }
-'''
-# the launch, as a loop over the grid's blocks and threads
-HOST_LAUNCH = '''gridDim = grid;
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx)
-      for (unsigned t = 0; t < kThreads; ++t) {
-        blockIdx.x = bx; blockIdx.y = by; threadIdx.x = t;
-        minimal6_kernel(\\1);
-      }'''
+template <class T>
+inline int cudaMemcpyToSymbol(T& symbol, const void* src, size_t count) {
+  std::memcpy(&symbol, src, count);
+  return 0;
+}
+
+// A block's threads run as coroutines on one host thread, one after
+// another (in lane order, or reversed), each up to its next __syncwarp; a
+// thread waiting there goes on once every lane of its mask has reached the
+// same barrier. A lane that returns while its group waits for it, a
+// barrier whose lanes name different masks, or a deadlock stops the run,
+// and cudaGetLastError reports it.
+namespace host_warp {
+struct Thread {
+  ucontext_t ctx;
+  long syncs = 0;
+  unsigned mask = 0;
+  bool waiting = false, done = false;
+};
+static ucontext_t scheduler;
+static std::vector<Thread> threads;
+static std::vector<std::vector<char>> stacks;
+static std::function<void()> body;
+static int current;
+static bool reverse_order;
+static const char* error;
+
+inline void fail(const char* what, int t) {
+  if (error) return;
+  error = what;
+  std::fprintf(stderr, "host warp: %s (thread %d)\n", what, t);
+}
+inline void entry() {
+  body();
+  threads[current].done = true;
+  swapcontext(&threads[current].ctx, &scheduler);
+}
+inline bool may_resume(int t) {
+  const Thread& me = threads[t];
+  if (!me.waiting) return true;
+  const int base = t - t % 32;
+  for (int l = 0; l < 32; ++l) {
+    if (!(me.mask >> l & 1u)) continue;
+    if (base + l >= (int)threads.size()) {
+      fail("mask names no thread", t);
+      return false;
+    }
+    const Thread& other = threads[base + l];
+    if (other.syncs < me.syncs) {
+      if (other.done) fail("__syncwarp waits for a lane that returned", t);
+      return false;
+    }
+    if (other.syncs == me.syncs && other.mask != me.mask) {
+      fail("lanes of one barrier name different masks", t);
+      return false;
+    }
+  }
+  return true;
+}
+template <class F>
+void launch(dim3 grid, dim3 block, F f) {
+  gridDim = grid;
+  blockDim = block;
+  const int n = (int)block.x;
+  stacks.resize(n);
+  for (auto& s : stacks) s.resize(1 << 19);
+  body = f;
+  error = nullptr;
+  for (unsigned bx = 0; bx < grid.x && !error; ++bx) {
+    blockIdx.x = bx;
+    threads.assign(n, Thread());
+    for (int t = 0; t < n; ++t) {
+      Thread& th = threads[t];
+      getcontext(&th.ctx);
+      th.ctx.uc_stack.ss_sp = stacks[t].data();
+      th.ctx.uc_stack.ss_size = stacks[t].size();
+      th.ctx.uc_link = nullptr;
+      makecontext(&th.ctx, entry, 0);
+    }
+    for (int left = n; left > 0 && !error;) {
+      bool moved = false;
+      for (int i = 0; i < n && !error; ++i) {
+        const int t = reverse_order ? n - 1 - i : i;
+        Thread& th = threads[t];
+        if (th.done || !may_resume(t)) continue;
+        th.waiting = false;
+        current = t;
+        threadIdx.x = t;
+        swapcontext(&scheduler, &th.ctx);
+        left -= th.done;
+        moved = true;
+      }
+      if (!moved) fail("no thread can pass its barrier", -1);
+    }
+  }
+}
+}  // namespace host_warp
+
+inline int cudaGetLastError() { return host_warp::error ? 1 : 0; }
+
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  host_warp::Thread& th = host_warp::threads[host_warp::current];
+  if (!(mask >> (host_warp::current % 32) & 1u))
+    host_warp::fail("__syncwarp outside its own mask", host_warp::current);
+  ++th.syncs;
+  th.mask = mask;
+  th.waiting = true;
+  swapcontext(&th.ctx, &host_warp::scheduler);
+}
+
+extern "C" void lc_host_reverse_lanes(int on) { host_warp::reverse_order = on; }
+"""
+# the launch, as the block's threads run by host_warp
+HOST_LAUNCH = (r'minimal6_kernel<<<([^,]*), ([^,]*), [^>]*>>>\(([^;]*)\);',
+               r'host_warp::launch(dim3(\1), dim3(\2), [&] { '
+               r'minimal6_kernel(\3); });')
+# lanes an EPnP problem: the card's build, and one lane
+LANES = {'card': None, 'one_lane': 1}
 
 
 @pytest.fixture(scope='module')
-def host_kernel(tmp_path_factory):
+def host_kernels(tmp_path_factory):
+    """csrc/minimal6.cu compiled for the host at the card's lane widths and
+    at one lane a problem: {name: library}."""
     cxx = shutil.which('g++') or shutil.which('c++')
     if cxx is None:
         pytest.skip('needs a host C++ compiler')
     d = tmp_path_factory.mktemp('minimal6_host')
     with open(osp.join(cuda_build.CSRC, 'minimal6.cu')) as f:
         src = f.read()
-    src, n = re.subn(r'minimal6_kernel<<<[^>]*>>>\(([^;]*)\);', HOST_LAUNCH,
-                     src)
+    src, n = re.subn(HOST_LAUNCH[0], HOST_LAUNCH[1], src)
     assert n == 1
     (d / 'cuda_runtime.h').write_text(HOST_SHIM)
     (d / 'minimal6.cpp').write_text(src)
-    lib = d / 'libminimal6.so'
-    # -ffp-contract=off: every multiply and add rounded on its own, as the
-    # card build's -fmad=false
-    subprocess.run([cxx, '-std=c++17', '-O1', '-ffp-contract=off', '-fPIC',
-                    '-shared', '-Wno-unknown-pragmas', f'-I{d}',
-                    str(d / 'minimal6.cpp'), '-o', str(lib)], check=True)
-    out = ctypes.CDLL(str(lib))
+    jobs = {}
+    for name, lanes in LANES.items():
+        defs = [] if lanes is None else [f'-DLC_M6_LANES_EPNP={lanes}']
+        lib = d / f'libminimal6_{name}.so'
+        # -ffp-contract=off: every multiply and add rounded on its own, as
+        # the card build's -fmad=false
+        jobs[name] = lib, subprocess.Popen(
+            [cxx, '-std=c++17', '-O1', '-ffp-contract=off', '-fPIC', '-shared',
+             '-Wno-unknown-pragmas', *defs, f'-I{d}', str(d / 'minimal6.cpp'),
+             '-o', str(lib)])
+    out = {}
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    out.lc_minimal6.argtypes = [vp] * 5 + [ci] * 4 + [vp, vp]
-    out.lc_minimal6.restype = ci
+    for name, (lib, proc) in jobs.items():
+        assert proc.wait() == 0, name
+        out[name] = ctypes.CDLL(str(lib))
+        out[name].lc_minimal6.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+        out[name].lc_minimal6.restype = ci
+        out[name].lc_minimal6_set_basis.argtypes = [vp]
+        out[name].lc_minimal6_set_basis.restype = ci
+        out[name].lc_host_reverse_lanes.argtypes = [ci]
     return out
 
 
-def run_host_kernel(lib, Kc, P3, uv, estimators=tf.ESTIMATORS):
+@pytest.fixture(scope='module')
+def host_kernel(host_kernels):
+    return host_kernels['card']
+
+
+def run_host_kernel(lib, Kc, P3, uv, estimators=tf.ESTIMATORS,
+                    reverse_lanes=False):
     codes = mk.estimator_codes(estimators)
     B, Kh = P3.shape[:2]
     pose = np.zeros((B, len(codes) * Kh, 7), np.float32)
     ok = np.zeros((B, len(codes) * Kh), np.uint8)
     args = [np.ascontiguousarray(a, np.float32) for a in (Kc, P3, uv)]
-    basis = mk.basis_arg()
-    err = lib.lc_minimal6(*(a.ctypes.data for a in args), pose.ctypes.data,
-                          ok.ctypes.data, B, Kh, len(codes),
-                          sum(c << (2 * i) for i, c in enumerate(codes)),
-                          basis.ctypes.data, None)
+    assert lib.lc_minimal6_set_basis(mk.basis_arg().ctypes.data) == 0
+    lib.lc_host_reverse_lanes(int(reverse_lanes))
+    try:
+        err = lib.lc_minimal6(*(a.ctypes.data for a in args), pose.ctypes.data,
+                              ok.ctypes.data, B, Kh, len(codes),
+                              sum(c << (2 * i) for i, c in enumerate(codes)),
+                              None)
+    finally:
+        lib.lc_host_reverse_lanes(0)
     assert err == 0
     return pose, ok.astype(bool)
 
@@ -459,3 +639,21 @@ def test_kernel_source_on_host_estimator_subsets(host_kernel):
             np.testing.assert_array_equal(
                 pose[:, e * Kh:(e + 1) * Kh],
                 full[:, code * Kh:(code + 1) * Kh])
+
+
+@pytest.mark.parametrize('noise,planar', [(1.0, False), (0.0, True)])
+def test_kernel_source_lane_widths_agree(host_kernels, noise, planar):
+    """The host-run kernel at the card's lanes an EPnP problem and at one
+    lane gives the same bits; so does the card's width with its lanes run
+    in reverse order (a lane reading what another writes in the same step
+    would differ)."""
+    assert host_kernels['card'].lc_minimal6_lanes() > 1
+    assert host_kernels['one_lane'].lc_minimal6_lanes() == 1
+    Kc, P3, uv, _ = samples(noise, planar)
+    wide = run_host_kernel(host_kernels['card'], Kc, P3, uv)
+    one = run_host_kernel(host_kernels['one_lane'], Kc, P3, uv)
+    rev = run_host_kernel(host_kernels['card'], Kc, P3, uv,
+                          reverse_lanes=True)
+    for other in (one, rev):
+        np.testing.assert_array_equal(wide[0], other[0])
+        np.testing.assert_array_equal(wide[1], other[1])
