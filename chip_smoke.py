@@ -101,6 +101,12 @@ Phases, each of which fails the run on error:
      forward ms against bf16, and harness.run_test with int8_inference in
      both modes; every stage breakdown also reads RANSAC's device
      operations and largest allocations;
+     then perf_scripts/learned_syn.py, which runs the learned results
+     (phase_learned_driver): its syn-s42 arm at configs/syn.yaml's widths
+     and batch cut to 20 steps on a generated 48/8-view tree, the train CLI
+     and the arm's four test CLI evaluations each a process of its own;
+     every output line parsed and checked, B1 3 and minimal6 1 launch a
+     batch in each evaluation on the card;
   9. bench_torch.py, the port's benchmark CLI (phase_bench): its
      headline, infer_raw, int8_static, zebra, sparse, stages, train,
      train_trace and mfu modes in this process at reduced iterations, each
@@ -3225,6 +3231,78 @@ def phase_cli_train_families(device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the learned results' script (perf_scripts/learned_syn.py)
+# --------------------------------------------------------------------------
+
+# perf_scripts/learned_syn.py's arm at configs/syn.yaml's widths and batch,
+# cut to LEARNED_OPTS' steps on a tree of LEARNED_VIEWS (training/held-out)
+LEARNED_ARM = 'syn-s42'
+LEARNED_VIEWS = '48/8'
+LEARNED_OPTS = ('train.num_steps=20', 'train.ckpt_every=10')
+LEARNED_KEYS = {'arm', 'config', 'seed', 'steps', 'batch', 'eval', 'device',
+                'solver', 'AUCadi_10_p11', 'AUCad_10_p11', 'AUCadi_10_all',
+                'AUCad_10_all', 'add(-s)_0.10', 'train_wall_s',
+                'train_attempts', 'loop_crops_per_s', 'eval_wall_s',
+                'test_views', 'test_batches', 'launches', 'card'}
+
+
+def phase_learned_driver(device) -> dict:
+    """perf_scripts/learned_syn.py, the script of the learned results, as
+    it runs an arm: the syn-s42 arm (configs/syn.yaml, 256² in, 64² out,
+    batch 16) cut to 20 steps with a checkpoint at step 10, on a 48/8-view
+    tree generated in a temporary directory, through the train CLI and
+    each of the arm's evaluations by the test CLI (f32, int8 dynamic and
+    static on the card, the CPU), every CLI a process of its own. Every
+    line of its output must parse and hold its keys and the run's steps and
+    batch; each evaluation on the card must launch B1 3 times a batch and
+    minimal6 once, the CPU's neither, and the training no shear kernel
+    (syn does not rotate on the device). Returns its lines and seconds."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    dev_args = [] if device.type == 'cuda' else ['--device', 'cpu']
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, os.path.join(here, 'perf_scripts',
+                                          'learned_syn.py'),
+             '--arm', LEARNED_ARM, '--root', tmp, '--views', LEARNED_VIEWS,
+             *dev_args, '--opts', *LEARNED_OPTS],
+            capture_output=True, text=True, timeout=900, cwd=here)
+        seconds = time.perf_counter() - t0
+        check(p.returncode == 0, f'learned_syn.py exited {p.returncode}: '
+              f'{p.stderr[-3000:]}')
+    from lc_tpu_torch.utils.config import load_config
+    cfg = load_config(os.path.join(here, 'configs', 'syn.yaml'),
+                      list(LEARNED_OPTS))
+    lines = [json.loads(s) for s in p.stdout.splitlines()]
+    check({line['eval'] for line in lines}
+          == {'f32', 'int8_dynamic', 'int8_static', 'cpu'},
+          f'learned_syn.py evaluations: {[x["eval"] for x in lines]}')
+    for line in lines:
+        tag = f'learned_syn.py {line["eval"]} {line["solver"]}'
+        check(set(line) == LEARNED_KEYS, f'{tag}: keys {sorted(line)}')
+        check(line['steps'] == cfg.train.num_steps
+              and line['batch'] == cfg.dataloader.batch_size
+              and line['test_views'] == int(LEARNED_VIEWS.split('/')[1]),
+              f'{tag}: {line}')
+        check(all(line[k] is None or np.isfinite(line[k])
+                  for k in ('AUCadi_10_p11', 'AUCad_10_p11', 'AUCadi_10_all',
+                            'AUCad_10_all', 'add(-s)_0.10')),
+              f'{tag}: scores {line}')
+        ev, batches = line['launches']['eval'], line['test_batches']
+        on_card = line['device'] == 'cuda'
+        check(ev['lm_refine'] == (3 * batches if on_card else 0)
+              and ev['minimal6'] == (batches if on_card else 0)
+              and ev['shear_x'] == 0,
+              f'{tag}: launches {ev} in {batches} batches')
+        check(line['launches']['train']['shear_x'] == 0
+              and line['launches']['train']['lm_refine'] == 0,
+              f'{tag}: training launches {line["launches"]["train"]}')
+        log(f'[learned] {json.dumps(line)}')
+    return dict(lines=lines, seconds=seconds)
+
+
+# --------------------------------------------------------------------------
 # phase 9: bench_torch.py, the port's benchmark CLI
 # --------------------------------------------------------------------------
 
@@ -3458,6 +3536,10 @@ def run_phases(torch):
     log(f'[phase] train CLI on the zebra and sparse families: '
         f'{time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
+    learned = phase_learned_driver(device)
+    log(f'[phase] perf_scripts/learned_syn.py, {LEARNED_ARM} cut to '
+        f'{LEARNED_OPTS[0]}: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
     bench = phase_bench(device)
     log(f'[phase] bench_torch.py: {time.perf_counter() - t0:.1f} s')
 
@@ -3490,6 +3572,9 @@ def run_phases(torch):
         for rank, counts in dp['gloo2']['launches'].items():
             out[f'train_cli_glmo_gloo2_{rank}'] = counts['train'][kernel]
             out[f'test_cli_glmo_gloo2_{rank}'] = counts['test'][kernel]
+        out.update({f'learned_syn_{line["eval"]}':
+                    line['launches']['eval'][kernel]
+                    for line in learned['lines'] if line['device'] == 'cuda'})
         out.update({f'bench_{mode}': bench[mode]['launches'][kernel]
                     for mode in BENCH_MODES
                     if bench[mode]['launches'][kernel]})

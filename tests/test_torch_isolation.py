@@ -19,7 +19,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'lc_tpu', 'bench',
 
 def _port_sources():
     files = sorted((ROOT / 'lc_tpu_torch').rglob('*.py'))
-    return files + [ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py']
+    return files + [ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py',
+                    ROOT / 'perf_scripts' / 'learned_syn.py']
 
 
 def _imported_modules(path):
